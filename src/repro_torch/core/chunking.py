@@ -1,0 +1,134 @@
+"""Chunk-transposed database construction (twin of ``repro/core/chunking.py``).
+
+Host-side numpy, kept byte-identical to the JAX package: each cluster's
+documents serialize into one byte column of an (m × n) uint8 matrix, and
+retrieving a cluster is privately reading one column.
+
+Per-document record (little-endian):
+
+    [doc_id : u32][text_len : u32][emb_scale : f32][emb_off : f32]
+    [emb_q  : u8 × emb_dim]  [text : u8 × text_len]
+
+Column layout: [n_docs : u32][record ...][zero padding to m rows], with
+m = max serialized cluster size rounded up to ``chunk_size``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+_HDR = 16  # doc_id + text_len + scale + offset
+
+#: (doc_id, embedding f32 (d,), text bytes) — the canonical document triple.
+DocTriple = tuple[int, np.ndarray, bytes]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedDB:
+    """The chunk-transposed corpus: one uint8 byte column per cluster."""
+    matrix: np.ndarray            # (m, n) uint8, chunk-transposed
+    emb_dim: int
+    chunk_size: int
+    n_docs: int
+    cluster_sizes: np.ndarray     # (n,) docs per cluster
+    pad_fraction: float           # wasted bytes / total bytes (reported)
+    used_bytes: np.ndarray        # (n,) serialized bytes per column
+
+    @property
+    def m(self) -> int:
+        """Rows: bytes per column (max serialized cluster, chunk-rounded)."""
+        return self.matrix.shape[0]
+
+    @property
+    def n(self) -> int:
+        """Columns: number of clusters."""
+        return self.matrix.shape[1]
+
+
+def quantize_embedding(emb: np.ndarray) -> tuple[np.ndarray, float, float]:
+    """Per-doc affine u8 quantization (client re-ranking tolerates ≤0.4% err)."""
+    lo, hi = float(emb.min()), float(emb.max())
+    scale = (hi - lo) / 255.0 if hi > lo else 1.0
+    q = np.clip(np.round((emb - lo) / scale), 0, 255).astype(np.uint8)
+    return q, scale, lo
+
+
+def dequantize_embedding(q: np.ndarray, scale: float, off: float) -> np.ndarray:
+    """Inverse of `quantize_embedding`: u8 (d,) → f32 (d,)."""
+    return q.astype(np.float32) * scale + off
+
+
+def serialize_doc(doc_id: int, emb: np.ndarray, text: bytes) -> bytes:
+    """One document's wire record (see module docstring for the layout)."""
+    q, scale, off = quantize_embedding(emb)
+    hdr = (np.uint32(doc_id).tobytes() + np.uint32(len(text)).tobytes()
+           + np.float32(scale).tobytes() + np.float32(off).tobytes())
+    return hdr + q.tobytes() + text
+
+
+def deserialize_docs(col: np.ndarray, emb_dim: int
+                     ) -> list[tuple[int, np.ndarray, bytes]]:
+    """Parse one decrypted column back into (doc_id, embedding, text)."""
+    buf = col.tobytes()
+    n_docs = int(np.frombuffer(buf[:4], np.uint32)[0])
+    out = []
+    ofs = 4
+    for _ in range(n_docs):
+        doc_id = int(np.frombuffer(buf[ofs:ofs + 4], np.uint32)[0])
+        tlen = int(np.frombuffer(buf[ofs + 4:ofs + 8], np.uint32)[0])
+        scale = float(np.frombuffer(buf[ofs + 8:ofs + 12], np.float32)[0])
+        off = float(np.frombuffer(buf[ofs + 12:ofs + 16], np.float32)[0])
+        ofs += _HDR
+        q = np.frombuffer(buf[ofs:ofs + emb_dim], np.uint8)
+        ofs += emb_dim
+        text = buf[ofs:ofs + tlen]
+        ofs += tlen
+        out.append((doc_id, dequantize_embedding(q, scale, off), text))
+    return out
+
+
+def pack_column(docs: Sequence[DocTriple]) -> bytes:
+    """Serialize one cluster's documents (ascending doc_id) into its payload."""
+    docs = sorted(docs, key=lambda d: d[0])
+    parts = [np.uint32(len(docs)).tobytes()]
+    parts += [serialize_doc(int(i), emb, text) for i, emb, text in docs]
+    return b"".join(parts)
+
+
+def build_chunked_db(texts: Sequence[bytes], embeddings: np.ndarray,
+                     assignment: np.ndarray, n_clusters: int,
+                     chunk_size: int = 256,
+                     doc_ids: Sequence[int] | None = None) -> ChunkedDB:
+    """Pack the corpus into the chunk-transposed uint8 matrix.
+
+    ``doc_ids`` (default: positional 0..N-1) keeps external document ids.
+    """
+    n_docs, emb_dim = embeddings.shape
+    ids = np.arange(n_docs) if doc_ids is None else np.asarray(doc_ids)
+    if len(texts) != n_docs or len(ids) != n_docs:
+        raise ValueError(f"{len(texts)} texts and {len(ids)} ids for "
+                         f"{n_docs} embeddings")
+    assignment = np.asarray(assignment)
+    # members of each cluster in ascending row order, one stable sort
+    order = np.argsort(assignment, kind="stable")
+    bounds = np.searchsorted(assignment[order], np.arange(n_clusters + 1))
+    columns = [pack_column([(int(ids[i]), embeddings[i], texts[i])
+                            for i in order[bounds[j]:bounds[j + 1]]])
+               for j in range(n_clusters)]
+    sizes = np.bincount(assignment, minlength=n_clusters).astype(np.int64)
+
+    raw = max(len(c) for c in columns)
+    m = ((raw + chunk_size - 1) // chunk_size) * chunk_size
+    # fill column-major (each payload one contiguous write), then transpose
+    cols = np.zeros((n_clusters, m), np.uint8)
+    used = np.asarray([len(c) for c in columns], np.int64)
+    for j, c in enumerate(columns):
+        cols[j, :len(c)] = np.frombuffer(c, np.uint8)
+    full = np.ascontiguousarray(cols.T)
+
+    pad_frac = 1.0 - int(used.sum()) / float(m * n_clusters)
+    return ChunkedDB(matrix=full, emb_dim=emb_dim, chunk_size=chunk_size,
+                     n_docs=n_docs, cluster_sizes=sizes,
+                     pad_fraction=pad_frac, used_bytes=used)

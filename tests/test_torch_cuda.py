@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where there is no CUDA device (the kernels have
+no CPU mode).  On a machine with an H100 and nvcc::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Integer products must match bitwise; the k-means assignment within the
+rule stated in `test_kmeans_assign_matches_plain`.  This file imports no
+JAX, so it also runs where only the port's dependencies are installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch._common import u32_to_torch
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _u32(rng, shape, dev):
+    return u32_to_torch(rng.integers(0, 2**32, shape, dtype=np.uint32), dev)
+
+
+@pytest.mark.parametrize("m,n,b", [
+    (1, 1, 1), (100, 300, 1), (257, 513, 3), (31, 1025, 129),
+    (128, 64, 64), (1000, 4096, 64),
+])
+@pytest.mark.parametrize("left", ["u8", "u32"])
+def test_modmatmul_bitwise(cuda, m, n, b, left):
+    rng = np.random.default_rng(m * 7 + n + b)
+    if left == "u8":
+        lhs = torch.from_numpy(rng.integers(0, 256, (m, n), dtype=np.uint8)
+                               ).to(cuda)
+    else:
+        lhs = _u32(rng, (m, n), cuda)
+    rhs = _u32(rng, (n, b), cuda)
+    got = ops._matmul_u32(lhs, rhs, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.modmatmul_ref(lhs, rhs))
+
+
+@pytest.mark.parametrize("left", ["u8", "u32"])
+def test_modmatmul_wraparound(cuda, left):
+    m, n, b = 300, 1100, 70
+    lhs = (torch.full((m, n), 255, dtype=torch.uint8, device=cuda)
+           if left == "u8" else
+           torch.full((m, n), -1, dtype=torch.int32, device=cuda))
+    rhs = torch.full((n, b), -1, dtype=torch.int32, device=cuda)
+    got = ops._matmul_u32(lhs, rhs, "cuda")
+    assert torch.equal(got, ref.modmatmul_ref(lhs, rhs))
+
+
+def test_modmatmul_vector_and_counter(cuda):
+    rng = np.random.default_rng(1)
+    db = torch.from_numpy(rng.integers(0, 256, (77, 90), dtype=np.uint8)).to(cuda)
+    q = _u32(rng, (90,), cuda)
+    ops.reset_launch_counts()
+    got = ops.modmatmul(db, q)
+    assert got.shape == (77,)
+    assert ops.launch_counts()["modmatmul_u8"] == 1
+    assert torch.equal(got, ref.modmatmul_ref(db, q[:, None])[:, 0])
+
+
+@pytest.mark.parametrize("n,k,d", [
+    (256, 512, 64), (300, 700, 96), (64, 8, 32), (1000, 1024, 128),
+    (129, 65, 768), (1, 1, 1),
+])
+def test_kmeans_assign_matches_plain(cuda, n, k, d):
+    """min_d2 allclose(1e-5); assignments equal wherever the plain top-2
+    gap exceeds 1e-5·(|x|² + |c|²)."""
+    rng = np.random.default_rng(n + k + d)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32)).to(cuda)
+    got_a, got_d = ops.kmeans_assign(x, c, impl="cuda")
+    want_a, want_d = ref.kmeans_assign_ref(x, c)
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
+    full = (torch.sum(x * x, 1, keepdim=True) - 2.0 * (x @ c.T)
+            + torch.sum(c * c, 1)[None, :])
+    if k > 1:
+        top2 = torch.topk(full, 2, dim=1, largest=False).values
+        scale = torch.sum(x * x, 1) + torch.sum(c * c, 1)[want_a.long()]
+        clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * scale
+    else:
+        clear = torch.ones(n, dtype=torch.bool, device=cuda)
+    assert torch.equal(got_a[clear], want_a[clear])
+
+
+def test_kmeans_assign_earliest_tie(cuda):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((200, 8), dtype=np.float32)).to(cuda)
+    c0 = torch.from_numpy(rng.standard_normal((40, 8), dtype=np.float32)).to(cuda)
+    c = torch.cat([c0, c0, c0])              # exact duplicates across tiles
+    got_a, _ = ops.kmeans_assign(x, c, impl="cuda")
+    assert int(got_a.max()) < 40
+    assert torch.equal(got_a, ops.kmeans_assign(x, c0, impl="cuda")[0])

@@ -1,0 +1,95 @@
+"""The port stands alone: no JAX, no ``repro``, no quiet fall back to the CPU.
+
+Each check runs in a fresh interpreter with ``jax`` and ``repro`` blocked in
+``sys.modules``, so any import of either fails there.
+"""
+import pathlib
+import shutil
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_BLOCK = ("import sys; sys.modules['jax'] = None; "
+          "sys.modules['repro'] = None; sys.path.insert(0, %r); " %
+          str(ROOT / "src"))
+
+
+def _run(code, cwd=ROOT, timeout=120):
+    return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _modules():
+    mods = []
+    for f in sorted(PORT.rglob("*.py")):
+        rel = f.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_every_module_and_chip_smoke_import_without_jax():
+    mods = _modules()
+    assert "repro_torch.kernels.ops" in mods and len(mods) >= 15
+    code = ("import importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "(m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+            "print('BAD', bad)")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout
+
+
+def test_entry_points_raise_without_a_card():
+    code = ("import numpy as np, torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "from repro_torch.core import pipeline\n"
+            "from repro_torch import convert\n"
+            "e = np.zeros((4, 8), np.float32); t = [b'x'] * 4\n"
+            "for fn in (lambda: pipeline.PirRagSystem.build(t, e, n_clusters=2),\n"
+            "           lambda: convert.system_from_state(t, e, centroids=e[:2],"
+            " assignment=np.zeros(4, int), n_clusters=2, a_seed=1)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as err:\n"
+            "        assert 'device' in str(err), err\n"
+            "    else:\n"
+            "        raise SystemExit('ran without a card')\n"
+            "print('RAISED')")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED" in out.stdout
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode not in (0, None)
+    assert '"ok": true' not in out.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                           capture_output=True, text=True, timeout=120,
+                           env={"PATH": "/usr/bin:/bin"})
+    assert alone.returncode != 0
+    assert '"ok": true' not in alone.stdout
+
+
+def test_chip_smoke_rehearsal_runs_every_phase_without_jax():
+    code = ("import runpy\n"
+            f"sys.argv = [{str(ROOT / 'chip_smoke.py')!r}, '--rehearse']\n"
+            f"runpy.run_path(sys.argv[0], run_name='__main__')")
+    out = _run(code)
+    assert out.returncode == 3, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    for phase in ('"kernels"', '"B"', '"launches B"', '"B breakdown"', '"C"',
+                  '"launches C"', '"timing"'):
+        assert any(f'"phase": {phase}' in ln for ln in lines), phase
+    assert lines[-1].startswith('{"kernels": [')
+    assert '"ok": true' not in out.stdout
