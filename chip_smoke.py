@@ -10,22 +10,35 @@ path at full width and checks what comes out.  The phases, in order:
   device   the card's name and power limit, as nvidia-smi reports them
   build    one nvcc per kernel source, all started together
   kernels  every kernel against its plain version: the mod-2^32 products
-           bitwise on ragged shapes, on all-255 x all-0xFFFFFFFF operands
-           and on row slices of each main-path shape; k-means min-d2
-           allclose (rtol 1e-5, atol 1e-5) and assignments equal wherever
-           the plain top-2 gap exceeds 1e-5 * (|x|^2 + |c|^2)
+           (modmatmul, delta_gemm) and the u32 add (add_delta) bitwise on
+           ragged shapes, on wraparound operands and on row slices of each
+           main-path shape; k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
+           and assignments equal wherever the plain top-2 gap exceeds
+           1e-5 * (|x|^2 + |c|^2)
   B        `PirRagSystem.build` at SIFT1M scale (1,000,000 docs, d = 128,
            1024 clusters), then `query` and `query_batch` of 16 requests
            perturbed from known anchor docs: every anchor in its top-10,
            decoded columns equal to the DB's
+  U        phase B's system wrapped as a `LiveIndex`, two delta epochs:
+           replaces in 5% of the clusters, then replaces, inserts and
+           deletes over 25%; after each, the patched hint equals a fresh
+           `setup()` bitwise, the DB on the card equals the host mirror, a
+           client `HintCache` synced through the epoch log equals the
+           server's hint, every replaced or inserted doc is in its anchor
+           query's top-10 and no deleted one is; then one full-rebuild
+           epoch (an overflowing insert) on a smaller live index
+  S        `PIRServeLoop` over phase U's index: 64 requests, batches of 16,
+           a mutation batch every 2 ticks; served + failed == offered and
+           every anchor in its top-10 at the epoch its response names
   C        the production PIR point (m = 2,097,152, n = 4096, k = 1024,
            q_switch = 2^16): `PIRServer.setup`, `answer` on 64 encrypted
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
   timing   each kernel, its plain version and its bound at a main-path
-           shape; the hint checked bitwise against the plain version
+           shape; the hint and the phase-B-width delta checked bitwise
+           against the plain versions
 
-Launch counts are set to 0 just before phase B and read just after it, and
-again around phase C; every kernel must have launched in one of the two.
+Launch counts are set to 0 just before each of phases B, U, S and C and
+read just after it; every kernel of a path must have launched in it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
 the device's busy share.  Each output line is one JSON object,
@@ -35,12 +48,14 @@ mismatch raises, and the exit code is then not 0.  Without a CUDA device the
 script exits 2 before it prints anything.
 
 ``--rehearse`` runs the same phases on the CPU at a tiny size through the
-plain versions (nothing is built, nothing is timed on a card) and exits 3:
-it checks the script's own logic, not the card.
+plain versions (nothing is built, nothing is timed on a card), on one
+intra-op thread, and exits 3: it checks the script's own logic, not the
+card.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -53,9 +68,13 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import clustering, pipeline, pir, threefry  # noqa: E402
+from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
+                              threefry)
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.serve import PIRServeLoop  # noqa: E402
+from repro_torch.update import (HintCache, LiveIndex, journal,  # noqa: E402
+                                planner)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -64,10 +83,15 @@ FP32_FLOPS_PER_S = 67e12
 
 FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             queries=16, c_rows=2_097_152, c_cols=4096, c_batch=64,
-            slice_rows=4096, plain_rows=131_072)
-TINY = dict(docs=1200, emb_dim=64, topics=8, clusters=8, queries=4,
+            slice_rows=4096, plain_rows=131_072, rebuild_docs=20_000,
+            rebuild_clusters=64, s_requests=64, s_batch=16)
+TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             c_rows=1000, c_cols=256, c_batch=8, slice_rows=64,
-            plain_rows=256)
+            plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
+            s_requests=8, s_batch=4)
+#: shares of the clusters phase U's two delta epochs touch (update_bench's
+#: sweep: 5%, then 25%)
+U_SHARES = (0.05, 0.25)
 
 SOURCES = {
     "modmatmul_u8": ("src/repro_torch/kernels/csrc/modmatmul.cu",
@@ -76,6 +100,10 @@ SOURCES = {
                       "src/repro/core/lwe.py:141"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign.py:58"),
+    "delta_gemm": ("src/repro_torch/kernels/csrc/delta_gemm.cu",
+                   "src/repro/kernels/ops.py:204"),
+    "add_delta": ("src/repro_torch/kernels/csrc/delta_gemm.cu",
+                  "src/repro/kernels/ops.py:125"),
 }
 _NO_INT_MATMUL = ("torch has no integer matmul on CUDA, so no one call "
                   "computes a mod-2^32 product")
@@ -84,6 +112,17 @@ LIBRARY_NOTE = {
     "modmatmul_u32": _NO_INT_MATMUL,
     "kmeans_assign": "torch has no single call for a fused distance + "
                      "argmin",
+    "delta_gemm": _NO_INT_MATMUL,
+    "add_delta": "torch.add on int32 tensors: the same bits, by signed "
+                 "wraparound (timed only; the port never relies on it)",
+}
+#: the kernels each path must launch
+PATH_KERNELS = {
+    "B": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
+    "U": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign", "delta_gemm",
+          "add_delta"),
+    "S": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta"),
+    "C": ("modmatmul_u8", "modmatmul_u32"),
 }
 
 
@@ -104,14 +143,14 @@ class Card:
             torch.cuda.synchronize()
 
     def time_ms(self, fn, reps: int = 1, warmup: int = 1) -> float:
-        """Mean milliseconds of ``fn()``: CUDA events on the card."""
-        for _ in range(warmup):
-            fn()
+        """Mean milliseconds of ``fn()``: CUDA events on the card (one
+        unwarmed host-clock call in a rehearsal, which times nothing)."""
         if self.dev.type != "cuda":
             t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            return 1e3 * (time.perf_counter() - t0) / reps
+            fn()
+            return 1e3 * (time.perf_counter() - t0)
+        for _ in range(warmup):
+            fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -152,10 +191,35 @@ def plain_modmatmul(left, right, rows):
     return out
 
 
-def u32_max_abs_err(got, want) -> int:
-    """Largest |got − want| of two int32-held u32 tensors, as u32 values."""
-    return int(((got.to(torch.int64) & 0xFFFFFFFF)
-                - (want.to(torch.int64) & 0xFFFFFFFF)).abs().max())
+def plain_delta(new, old, a_j, rows):
+    """`ref.delta_gemm_ref` over row blocks, so full-size inputs fit."""
+    out = torch.empty((new.shape[0], a_j.shape[1]), dtype=torch.int32,
+                      device=new.device)
+    for r0 in range(0, new.shape[0], rows):
+        out[r0:r0 + rows] = ref.delta_gemm_ref(new[r0:r0 + rows],
+                                               old[r0:r0 + rows], a_j)
+    return out
+
+
+def plain_add(hint, delta, rows):
+    """`ref.add_delta_ref` over row blocks (its int64 temporaries are 8
+    bytes an element)."""
+    out = torch.empty_like(delta)
+    for r0 in range(0, hint.shape[0], rows):
+        out[r0:r0 + rows] = ref.add_delta_ref(hint[r0:r0 + rows],
+                                              delta[r0:r0 + rows])
+    return out
+
+
+def u32_max_abs_err(got, want, rows: int = 1 << 18) -> int:
+    """Largest |got − want| of two int32-held u32 tensors, as u32 values
+    (over row blocks: the int64 widening doubles the bytes)."""
+    err = 0
+    for r0 in range(0, got.shape[0], rows):
+        g, w = got[r0:r0 + rows], want[r0:r0 + rows]
+        err = max(err, int(((g.to(torch.int64) & 0xFFFFFFFF)
+                            - (w.to(torch.int64) & 0xFFFFFFFF)).abs().max()))
+    return err
 
 
 def check_mod(card, left, right, what):
@@ -168,6 +232,24 @@ def check_mod(card, left, right, what):
     if not torch.equal(got, want):
         raise AssertionError(f"modmatmul {what}: kernel != plain, max err "
                              f"{u32_max_abs_err(got, want)}")
+
+
+def check_delta(card, new, old, a_j, what):
+    """delta_gemm against its plain version, bitwise."""
+    got = ops.delta_gemm(new, old, a_j, impl=card.impl)
+    want = ref.delta_gemm_ref(new, old, a_j)
+    if not torch.equal(got, want):
+        raise AssertionError(f"delta_gemm {what}: kernel != plain, max err "
+                             f"{u32_max_abs_err(got, want)}")
+
+
+def check_add(card, hint, delta, what):
+    """add_delta against its plain version, bitwise; the hint unwritten."""
+    want = ref.add_delta_ref(hint, delta)
+    keep = hint.clone()
+    got = ops.add_delta(hint, delta, impl=card.impl)
+    if not (torch.equal(got, want) and torch.equal(hint, keep)):
+        raise AssertionError(f"add_delta {what}: kernel != plain")
 
 
 def check_assign(card, x, c, what):
@@ -225,11 +307,38 @@ def kernel_phase(card, cfg):
     a3, _ = ops.kmeans_assign(x, torch.cat([c0, c0, c0]), impl=card.impl)
     if not torch.equal(a3, ops.kmeans_assign(x, c0, impl=card.impl)[0]):
         raise AssertionError("kmeans_assign: ties do not go to the earliest")
+    j1, j2 = (max(1, round(s * n_b)) for s in U_SHARES)
+    delta_cases = [(1, 1, 1), (257, 51, 129), (31, 33, 1027), (100, 7, 33),
+                   (rows, j1, 1024), (rows, j2, 1024)]
+    for m, j, k in delta_cases:
+        check_delta(card, _u8(gen, (m, j), dev), _u8(gen, (m, j), dev),
+                    _u32(gen, (j, k), dev), f"{m}x{j}x{k}")
+    for new_val, old_val in ((255, 0), (0, 255)):
+        check_delta(card,
+                    torch.full((300, 70), new_val, dtype=torch.uint8,
+                               device=dev),
+                    torch.full((300, 70), old_val, dtype=torch.uint8,
+                               device=dev),
+                    torch.full((70, 45), -1, dtype=torch.int32, device=dev),
+                    f"wraparound {new_val}-{old_val}")
+    add_cases = [(1,), (3,), (1023,), (rows, 1024)]
+    for shape in add_cases:
+        check_add(card, _u32(gen, shape, dev), _u32(gen, shape, dev),
+                  f"{shape}")
+    # 4 bytes into both buffers: off the 16-byte alignment of the vector path
+    check_add(card, _u32(gen, (1001,), dev)[1:], _u32(gen, (1001,), dev)[1:],
+              "misaligned")
+    check_add(card, torch.full((5, 7), -1, dtype=torch.int32, device=dev),
+              torch.full((5, 7), -1, dtype=torch.int32, device=dev),
+              "wraparound")
     card.sync()
     emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 1,
          modmatmul_u32_cases=len(u32_cases) + 1, kmeans_assign_cases=6,
-         rule="mod-2^32 products bitwise; kmeans min_d2 allclose(1e-5,1e-5), "
-              "assignments equal where top-2 gap > 1e-5*(|x|^2+|c|^2)")
+         delta_gemm_cases=len(delta_cases) + 2,
+         add_delta_cases=len(add_cases) + 2,
+         rule="mod-2^32 products and adds bitwise; kmeans min_d2 "
+              "allclose(1e-5,1e-5), assignments equal where top-2 gap > "
+              "1e-5*(|x|^2+|c|^2)")
 
 
 # --------------------------------------------------------------------------
@@ -332,6 +441,275 @@ def phase_b_breakdown(card, cfg, system, corp, queries):
         top_kernels_ms=top)
 
 
+# --------------------------------------------------------------------------
+# the live index (U) and the serve loop (S) on phase B's system
+# --------------------------------------------------------------------------
+
+def _stable_docs(live, corp, rng, n, *, skip=(), slack=0):
+    """(doc, cluster) in ``n`` distinct clusters outside ``skip``: each doc
+    unmutated so far, its nearest public centroid its own cluster (so a
+    replace or a copy of its embedding stays there), and its column with
+    ``slack`` free bytes."""
+    system = live.system
+    taken, out = set(skip), []
+    for d in rng.permutation(len(corp.texts)):
+        d = int(d)
+        c = live._cluster_of.get(d)
+        if (c is None or c in taken or corp.texts[d] != live._docs[d][0]
+                or system.db.m - live._used[c] < slack):
+            continue
+        if planner.nearest_centroid(corp.embeddings[d],
+                                    system.centroids) != c:
+            continue
+        taken.add(c)
+        out.append((d, c))
+        if len(out) == n:
+            return out
+    raise AssertionError(f"only {len(out)} of {n} clusters have a stable doc")
+
+
+def _revised(text: bytes, tag: bytes) -> bytes:
+    """``text`` with its head overwritten by ``tag``: same length, so the
+    column cannot overflow."""
+    return (tag + text[len(tag):])[:len(text)]
+
+
+def _check_anchors(live, corp, want, gone, *, chunk=64):
+    """Every (doc, text) in ``want`` in its own embedding's top-10 with that
+    text; no doc of ``gone`` in its top-10.  Returns the count checked."""
+    items = [(d, t) for d, t in want] + [(d, None) for d in gone]
+    gen = torch.Generator(device=live.system.device).manual_seed(6)
+    for i in range(0, len(items), chunk):
+        part = items[i:i + chunk]
+        embs = np.stack([live._docs[d][1] if t is not None
+                         else corp.embeddings[d] for d, t in part])
+        tops = live.query_batch(embs, epoch=live.epoch, top_k=10,
+                                generator=gen)
+        for (d, text), top in zip(part, tops):
+            hit = [t for i_, _, t in top if i_ == d]
+            if text is not None and hit != [text]:
+                raise AssertionError(f"phase U: doc {d} not retrieved with "
+                                     f"its new text at epoch {live.epoch}")
+            if text is None and hit:
+                raise AssertionError(f"phase U: deleted doc {d} retrieved")
+    return len(items)
+
+
+def _commit_epoch(card, live, corp, cache, want, gone, share):
+    """Commit the pending batch as one delta epoch and check it."""
+    card.sync()
+    t0 = time.perf_counter()
+    staged = live.stage()
+    card.sync()
+    t1 = time.perf_counter()
+    patch = live.publish(staged)
+    card.sync()
+    t2 = time.perf_counter()
+    st = live.commits[-1]
+    if patch.is_full:
+        raise AssertionError(f"phase U: epoch {live.epoch} was a rebuild "
+                             f"({st.reason})")
+    system = live.system
+    if not torch.equal(system.server.setup(), system.hint):
+        raise AssertionError(f"phase U: patched hint != setup() at epoch "
+                             f"{live.epoch}")
+    mirror = torch.from_numpy(system.db.matrix).to(card.dev)
+    if not torch.equal(system.server.db, mirror):
+        raise AssertionError("phase U: DB on the card != host mirror")
+    del mirror
+    sync_bytes = cache.sync(live.epochs)
+    if cache.epoch != live.epoch or not torch.equal(cache.hint, system.hint):
+        raise AssertionError("phase U: synced client hint != server hint")
+    checked = _check_anchors(live, corp, want, gone)
+    return dict(
+        phase="U", epoch=live.epoch, share=share, mutations=st.n_mutations,
+        J=len(patch.cols), m=system.db.m, k=system.cfg.params.k,
+        patch_rows=int(patch.delta.shape[0]), patch_bytes=patch.wire_bytes,
+        hint_bytes=system.cfg.hint_bytes,
+        patch_over_hint=patch.wire_bytes / system.cfg.hint_bytes,
+        commit_seconds=t2 - t0, plan_seconds=st.plan_seconds,
+        repack_seconds=st.repack_seconds,
+        delta_seconds=(t1 - t0) - st.plan_seconds - st.repack_seconds,
+        publish_seconds=t2 - t1, hint_equals_setup=True,
+        db_equals_mirror=True, client_sync_bytes=sync_bytes,
+        client_hint_equal=True, anchors_checked=checked)
+
+
+def phase_u(card, cfg, system, corp):
+    t0 = time.perf_counter()
+    live = LiveIndex(system, corp.texts, corp.embeddings)
+    cache = HintCache(system.hint.clone(), system.cfg)
+    wrap_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    n_b = system.db.n
+    j1, j2 = (max(1, round(s * n_b)) for s in U_SHARES)
+    lines = []
+
+    first = _stable_docs(live, corp, rng, j1)
+    want = []
+    for d, _ in first:
+        text = _revised(corp.texts[d], b"rev1:")
+        live.replace(d, text, corp.embeddings[d])
+        want.append((d, text))
+    lines.append(_commit_epoch(card, live, corp, cache, want, [],
+                               U_SHARES[0]))
+
+    emb_dim = corp.embeddings.shape[1]
+    ins_text = b"inserted document " * 4
+    second = _stable_docs(live, corp, rng, j2, skip=[c for _, c in first],
+                          slack=chunking.record_bytes(emb_dim, len(ins_text)))
+    q = max(1, j2 // 4)
+    reps, ins, dels = second[:j2 - 2 * q], second[j2 - 2 * q:j2 - q],         second[j2 - q:]
+    want, gone = [], []
+    for d, _ in reps:
+        text = _revised(corp.texts[d], b"rev2:")
+        live.replace(d, text, corp.embeddings[d])
+        want.append((d, text))
+    for i, (d, _) in enumerate(ins):
+        new_id = len(corp.texts) + i
+        live.insert(new_id, ins_text, corp.embeddings[d])
+        want.append((new_id, ins_text))
+    for d, _ in dels:
+        live.delete(d)
+        gone.append(d)
+    lines.append(_commit_epoch(card, live, corp, cache, want, gone,
+                               U_SHARES[1]))
+    lines[0]["wrap_seconds"] = wrap_s
+    del cache
+    lines.append(_rebuild_epoch(card, cfg))
+    return live, lines
+
+
+def _rebuild_epoch(card, cfg):
+    """One full-rebuild epoch (an insert that overflows its column) on a
+    smaller live index: a full patch whose hint equals setup(), every live
+    doc in the DB and retrievable, doc ids kept."""
+    corp = corpus_lib.make_corpus(5, cfg["rebuild_docs"],
+                                  emb_dim=cfg["emb_dim"],
+                                  n_topics=cfg["rebuild_clusters"])
+    live = LiveIndex.build(corp.texts, corp.embeddings,
+                           n_clusters=cfg["rebuild_clusters"],
+                           device=card.dev)
+    m0 = live.system.db.m
+    big_id = len(corp.texts) + 1
+    live.insert(big_id, b"overflow " * (m0 // 9 + 1), corp.embeddings[0])
+    live.delete(3)
+    want = sorted((set(live.doc_ids()) - {3}) | {big_id})
+    card.sync()
+    t0 = time.perf_counter()
+    patch = live.commit()
+    card.sync()
+    commit_s = time.perf_counter() - t0
+    system = live.system
+    if not (patch.is_full and live.commits[-1].reason == "overflow"):
+        raise AssertionError("phase U rebuild: the overflow was not a "
+                             "full rebuild")
+    if not torch.equal(system.server.setup(), system.hint):
+        raise AssertionError("phase U rebuild: hint != setup()")
+    if not np.array_equal(patch.full_hint,
+                          system.hint.cpu().numpy().view(np.uint32)):
+        raise AssertionError("phase U rebuild: full patch != server hint")
+    db = system.db
+    in_db = sorted(i for j in range(db.n) for i, _, _ in
+                   chunking.deserialize_docs(db.matrix[:, j], db.emb_dim))
+    if not in_db == live.doc_ids() == want:
+        raise AssertionError("phase U rebuild: doc ids not kept")
+    rng = np.random.default_rng(8)
+    sample = [int(d) for d in rng.choice(want[:-1], 15, replace=False)]
+    gen = torch.Generator(device=card.dev).manual_seed(9)
+    embs = np.stack([live._docs[d][1] for d in sample + [big_id]])
+    tops = live.query_batch(embs, epoch=live.epoch, top_k=10, generator=gen)
+    for d, top in zip(sample + [big_id], tops):
+        if d not in [i for i, _, _ in top]:
+            raise AssertionError(f"phase U rebuild: doc {d} not retrieved")
+    return dict(phase="U rebuild", docs=len(want), n_clusters=db.n,
+                m_before=m0, m_after=db.m, commit_seconds=commit_s,
+                patch_bytes=patch.wire_bytes, hint_equals_setup=True,
+                doc_ids_kept=True, anchors_found=len(sample) + 1)
+
+
+def phase_s(card, cfg, live, corp):
+    """The sync serve loop over phase U's live index, a mutation batch
+    committed every 2 ticks."""
+    per_tick = cfg["s_batch"] // 2
+    n_ticks = cfg["s_requests"] // per_tick
+    loop = PIRServeLoop(live, max_batch=cfg["s_batch"], deadline_ms=1e9,
+                        seed=9)
+    rng = np.random.default_rng(12)
+    emb_dim = corp.embeddings.shape[1]
+    ins_text = b"served insert " * 4
+    n_batches = n_ticks // 2
+    pool = _stable_docs(live, corp, rng, 4 * n_batches + per_tick,
+                        slack=2 * chunking.record_bytes(emb_dim,
+                                                        len(ins_text)))
+    anchors = [d for d, _ in pool[:per_tick]]
+    muts = [pool[per_tick + 4 * b:per_tick + 4 * b + 4]
+            for b in range(n_batches)]
+    inserted_at: dict[int, int] = {}
+    anchor_of: dict[int, int] = {}
+    offered = 0
+    for t in range(n_ticks):
+        fresh_ids = [i for i in inserted_at if i not in anchor_of.values()]
+        for j in range(per_tick):
+            d = fresh_ids.pop() if fresh_ids else anchors[j]
+            loop.submit(offered, live._docs[d][1], top_k=10)
+            anchor_of[offered] = d
+            offered += 1
+        new_id = None
+        if t % 2 == 1:
+            (r1, _), (r2, _), (ins, _), (dl, _) = muts[t // 2]
+            for d in (r1, r2):
+                loop.submit_mutation(journal.replace(
+                    d, _revised(corp.texts[d], b"srv:"), corp.embeddings[d]))
+            new_id = len(corp.texts) + 10_000 + t
+            loop.submit_mutation(journal.insert(
+                new_id, ins_text, corp.embeddings[ins]))
+            loop.submit_mutation(journal.delete(dl))
+        loop.tick()
+        if new_id is not None:
+            if live.journal.pending() or loop.mutations:
+                raise AssertionError("phase S: a mutation batch did not "
+                                     "commit on its tick")
+            inserted_at[new_id] = live.epoch
+    loop.drain()
+    # one traced tick: a full batch served, no commit
+    for j in range(cfg["s_batch"]):
+        loop.submit(offered, live._docs[anchors[j % len(anchors)]][1],
+                    top_k=10)
+        anchor_of[offered] = anchors[j % len(anchors)]
+        offered += 1
+    wall, busy, top = traced_ms(card, lambda: loop.tick(force=True))
+    loop.drain()
+
+    served = [r for r in loop.responses if not r.failed]
+    if len(served) + loop.failed_requests != offered:
+        raise AssertionError(f"phase S: {len(served)} served + "
+                             f"{loop.failed_requests} failed != {offered}")
+    for r in served:
+        d = anchor_of[r.rid]
+        if d not in [i for i, _, _ in r.top]:
+            raise AssertionError(f"phase S: request {r.rid} (doc {d}) not "
+                                 f"retrieved at epoch {r.epoch}")
+        if r.epoch < inserted_at.get(d, 0):
+            raise AssertionError(f"phase S: doc {d} served before its epoch")
+    if not torch.equal(live.system.server.setup(), live.system.hint):
+        raise AssertionError("phase S: patched hint != setup()")
+    timings = list({id(r.timing): r.timing for r in served}.values())
+
+    def med_ms(attr):
+        return 1e3 * float(np.median([getattr(t, attr) for t in timings]))
+
+    return dict(
+        phase="S", offered=offered, served=len(served),
+        failed=loop.failed_requests, stale_retries=loop.stale_retries,
+        epochs=live.epoch, batches=len(timings),
+        inserted_anchors=len(inserted_at), encode_ms_median=med_ms("encode_s"),
+        gemm_ms_median=med_ms("gemm_s"), decode_ms_median=med_ms("decode_s"),
+        traced_tick_wall_ms=wall, device_kernel_ms=busy,
+        device_idle_share=None if busy is None else 1.0 - busy / wall,
+        top_kernels_ms=top)
+
+
 def phase_c(card, cfg):
     m, n, b = cfg["c_rows"], cfg["c_cols"], cfg["c_batch"]
     pcfg = pir.make_config(m, n, impl="auto")
@@ -380,7 +758,7 @@ def _bound(bytes_, ops_, rate):
                                        else "operations")
 
 
-def timing_phase(card, cfg, state, launches):
+def timing_phase(card, cfg, state, launches, u_epochs):
     rows = cfg["plain_rows"]
     db, hint, qs, secrets = (state["db"], state["hint"], state["qs"],
                              state["secrets"])
@@ -388,15 +766,16 @@ def timing_phase(card, cfg, state, launches):
     b, k = qs.shape[1], hint.shape[1]
     table = []
 
-    def entry(name, shape, ms, plain_ms, err, bytes_, ops_, rate, note):
+    def entry(name, shape, ms, plain_ms, err, bytes_, ops_, rate, note,
+              library_ms=None):
         bound_ms, bound_by = _bound(bytes_, ops_, rate)
         src, replaces = SOURCES[name]
         table.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, library_note=LIBRARY_NOTE[name], shape=shape,
-            bound_note=note))
+            library_ms=library_ms, library_note=LIBRARY_NOTE[name],
+            shape=shape, bound_note=note))
 
     # the answer: D (m, n) u8 · Q (n, 64), phase C
     got = ops.modmatmul(db, qs, impl=card.impl)
@@ -454,6 +833,58 @@ def timing_phase(card, cfg, state, launches):
     entry("kmeans_assign", f"Lloyd block {pts}x{kk}x{d}", ms, plain_ms, err,
           4 * (pts * d + kk * d) + 8 * pts, 2 * pts * kk * d,
           FP32_FLOPS_PER_S, "fp32 FMA on the CUDA cores (no TF32)")
+    del x, c
+
+    # the delta-hint kernel at phase B's width and each phase-U epoch's J
+    for i, u in enumerate(u_epochs):
+        mb, j, kb = u["m"], u["J"], u["k"]
+        new, old = _u8(gen, (mb, j), card.dev), _u8(gen, (mb, j), card.dev)
+        a_j = _u32(gen, (j, kb), card.dev)
+        got = ops.delta_gemm(new, old, a_j, impl=card.impl)
+        plain, plain_ms = card.once_ms(lambda: plain_delta(new, old, a_j,
+                                                           rows))
+        err = u32_max_abs_err(got, plain)
+        del plain, got
+        if err:
+            raise AssertionError(f"delta_gemm at {mb}x{j}x{kb}: max err {err}")
+        ms = card.time_ms(lambda: ops.delta_gemm(new, old, a_j,
+                                                 impl=card.impl), reps=5)
+        args = (f"delta epoch {u['epoch']} {mb}x{j}x{kb}", ms, plain_ms, err,
+                2 * mb * j + 4 * j * kb + 4 * mb * kb, 2 * mb * j * kb * 8,
+                INT8_OPS_PER_S, "8 int8 limb MACs per MAC, as the TPU's two "
+                "u8 x u32 products; dH written once")
+        if i == 0:
+            entry("delta_gemm", *args)
+        else:
+            bms, bby = _bound(*args[4:7])
+            emit(phase="timing", op=f"delta epoch {u['epoch']}",
+                 kernel="delta_gemm", shape=args[0], ms=ms, plain_ms=plain_ms,
+                 max_abs_err=err, bound_ms=bms, bound_by=bby)
+        del new, old, a_j
+
+    # folding dH into the hint at phase B's width
+    u = u_epochs[0]
+    hint_t = _u32(gen, (u["m"], u["k"]), card.dev)
+    delta_t = _u32(gen, (u["m"], u["k"]), card.dev)
+    want, plain_ms = card.once_ms(lambda: plain_add(hint_t, delta_t, rows))
+    got = ops.add_delta(hint_t, delta_t.clone(), impl=card.impl)
+    err = u32_max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"add_delta at {tuple(hint_t.shape)}: max err "
+                             f"{err}")
+    lib = torch.add(hint_t, delta_t)
+    lib_ms = None
+    if torch.equal(lib, want):
+        lib_ms = card.time_ms(lambda: torch.add(hint_t, delta_t,
+                                                out=delta_t), reps=5)
+    del got, want, lib
+    ms = card.time_ms(lambda: ops.add_delta(hint_t, delta_t, impl=card.impl),
+                      reps=5)
+    words = hint_t.numel()
+    entry("add_delta", f"hint fold {u['m']}x{u['k']}", ms, plain_ms, err,
+          12 * words, words, FP32_FLOPS_PER_S,
+          "one u32 add per word on the CUDA cores; two words read, one "
+          "written", library_ms=lib_ms)
     return table
 
 
@@ -478,6 +909,10 @@ def main(argv=None) -> int:
         return 2
     card = Card(args.rehearse)
     cfg = TINY if args.rehearse else FULL
+    if args.rehearse:
+        # tiny shapes gain nothing from intra-op threads, and on a CPU that
+        # other processes share they stall on each other's barriers
+        torch.set_num_threads(1)
     t_start = time.perf_counter()
 
     if not args.rehearse:
@@ -489,32 +924,47 @@ def main(argv=None) -> int:
              sources=list(_build.SOURCES))
     kernel_phase(card, cfg)
 
+    paths = {}
     ops.reset_launch_counts()
     system, corp, queries, line_b = phase_b(card, cfg)
-    launches_b = ops.launch_counts()
+    paths["B"] = ops.launch_counts()
     emit(**line_b)
-    emit(phase="launches B", **launches_b)
+    emit(phase="launches B", **paths["B"])
     emit(**phase_b_breakdown(card, cfg, system, corp, queries))
-    del system, corp
+
+    ops.reset_launch_counts()
+    live, lines_u = phase_u(card, cfg, system, corp)
+    paths["U"] = ops.launch_counts()
+    for line in lines_u:
+        emit(**line)
+    emit(phase="launches U", **paths["U"])
+    u_epochs = [ln for ln in lines_u if ln["phase"] == "U"]
+
+    ops.reset_launch_counts()
+    line_s = phase_s(card, cfg, live, corp)
+    paths["S"] = ops.launch_counts()
+    emit(**line_s)
+    emit(phase="launches S", **paths["S"])
+    # a LiveIndex is in a reference cycle (its epoch log's full_fetch hook),
+    # so its 1M-doc system goes only when the cycle collector runs
+    del system, corp, live
+    gc.collect()
     if card.dev.type == "cuda":
         torch.cuda.empty_cache()
 
     ops.reset_launch_counts()
     state, line_c = phase_c(card, cfg)
-    launches_c = ops.launch_counts()
+    paths["C"] = ops.launch_counts()
     emit(**line_c)
-    emit(phase="launches C", **launches_c)
-    launches = {k: launches_b[k] + launches_c[k] for k in launches_b}
+    emit(phase="launches C", **paths["C"])
+    launches = {k: sum(p[k] for p in paths.values()) for k in paths["B"]}
     if not args.rehearse:
-        # phase B runs every kernel; phase C every kernel but k-means
-        for path, counts, need in (("B", launches_b, launches_b),
-                                   ("C", launches_c, ("modmatmul_u8",
-                                                      "modmatmul_u32"))):
-            if not all(counts[k] > 0 for k in need):
+        for path, counts in paths.items():
+            if not all(counts[k] > 0 for k in PATH_KERNELS[path]):
                 raise AssertionError(f"phase {path}: a kernel of the path "
                                      f"was not launched: {counts}")
 
-    table = timing_phase(card, cfg, state, launches)
+    table = timing_phase(card, cfg, state, launches, u_epochs)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     if args.rehearse:

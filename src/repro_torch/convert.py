@@ -1,11 +1,14 @@
 """Carry a clustered corpus's state into the port.
 
 `system_from_state` takes the numpy arrays that fix a build — centroids,
-the doc→cluster assignment and the public seed ``a_seed`` — and packs and
-hints on the port's side.  Given the JAX package's arrays (for example
-``np.asarray(sys.centroids)``, ``sys.assignment``, ``sys.cfg.a_seed`` of a
-``repro`` build), the port's DB bytes, hint and answers equal the
-reference's bit for bit.  Nothing here imports JAX.
+the doc→cluster assignment, the public seed ``a_seed`` and the external doc
+ids — and packs and hints on the port's side.  Given the JAX package's
+arrays (for example ``np.asarray(sys.centroids)``, ``sys.assignment``,
+``sys.cfg.a_seed`` of a ``repro`` build), the port's DB bytes, hint and
+answers equal the reference's bit for bit.  `live_from_state` wraps such a
+system as a `LiveIndex`, so the same mutations through the JAX package's
+live index and the port's give the same patches, DB bytes and hints.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ import torch
 
 from repro_torch._common import resolve_device
 from repro_torch.core.pipeline import PirRagSystem
+from repro_torch.update.live import LiveIndex
 
 
 def system_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
                       centroids: np.ndarray, assignment: np.ndarray,
                       n_clusters: int, a_seed: int, chunk_size: int = 256,
                       q_switch: int | None = 1 << 16, impl: str = "auto",
+                      doc_ids: Sequence[int] | None = None,
                       device: str | torch.device | None = None
                       ) -> PirRagSystem:
     """A `PirRagSystem` on ``device`` from a finished clustering."""
@@ -31,4 +36,27 @@ def system_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
         texts, np.asarray(embeddings, np.float32),
         np.asarray(centroids, np.float32), np.asarray(assignment),
         n_clusters, a_seed=int(a_seed), chunk_size=chunk_size,
-        q_switch=q_switch, impl=impl, device=dev, t0=time.perf_counter())
+        q_switch=q_switch, impl=impl, device=dev, t0=time.perf_counter(),
+        doc_ids=doc_ids)
+
+
+def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
+                    centroids: np.ndarray, assignment: np.ndarray,
+                    n_clusters: int, a_seed: int,
+                    doc_ids: Sequence[int] | None = None,
+                    compact_every: int | None = None,
+                    max_pad_fraction: float = 0.95, chunk_size: int = 256,
+                    q_switch: int | None = 1 << 16, impl: str = "auto",
+                    device: str | torch.device | None = None) -> LiveIndex:
+    """A port `LiveIndex` over `system_from_state`'s system.
+
+    Full rebuilds of the returned index run the port's own `build` on
+    ``device`` with the same chunk size, modulus switch and ``impl``.
+    """
+    system = system_from_state(
+        texts, embeddings, centroids=centroids, assignment=assignment,
+        n_clusters=n_clusters, a_seed=a_seed, chunk_size=chunk_size,
+        q_switch=q_switch, impl=impl, doc_ids=doc_ids, device=device)
+    return LiveIndex(system, texts, embeddings, doc_ids=doc_ids,
+                     max_pad_fraction=max_pad_fraction,
+                     compact_every=compact_every)

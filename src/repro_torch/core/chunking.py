@@ -11,11 +11,15 @@ Per-document record (little-endian):
 
 Column layout: [n_docs : u32][record ...][zero padding to m rows], with
 m = max serialized cluster size rounded up to ``chunk_size``.
+
+The live index re-packs only the clusters a mutation batch touches
+(`rebuild_columns`); `ColumnOverflowError` is its signal that a column no
+longer fits in m rows and the index must be rebuilt.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 
@@ -23,6 +27,16 @@ _HDR = 16  # doc_id + text_len + scale + offset
 
 #: (doc_id, embedding f32 (d,), text bytes) — the canonical document triple.
 DocTriple = tuple[int, np.ndarray, bytes]
+
+
+class ColumnOverflowError(ValueError):
+    """A re-packed column no longer fits in the m-row budget (rebuild needed)."""
+
+    def __init__(self, cluster: int, need: int, have: int):
+        super().__init__(f"cluster {cluster} needs {need} bytes > m={have}")
+        self.cluster = cluster
+        self.need = need
+        self.have = have
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,12 +103,43 @@ def deserialize_docs(col: np.ndarray, emb_dim: int
     return out
 
 
+def record_bytes(emb_dim: int, text_len: int) -> int:
+    """Serialized size of one record: 16-byte header + emb + text."""
+    return _HDR + emb_dim + text_len
+
+
+def column_payload_bytes(emb_dim: int, text_lens: Sequence[int]) -> int:
+    """Serialized size of a column holding docs with the given text lengths."""
+    return 4 + sum(record_bytes(emb_dim, t) for t in text_lens)
+
+
 def pack_column(docs: Sequence[DocTriple]) -> bytes:
     """Serialize one cluster's documents (ascending doc_id) into its payload."""
     docs = sorted(docs, key=lambda d: d[0])
     parts = [np.uint32(len(docs)).tobytes()]
     parts += [serialize_doc(int(i), emb, text) for i, emb, text in docs]
     return b"".join(parts)
+
+
+def rebuild_columns(m: int, docs_by_col: Mapping[int, Sequence[DocTriple]]
+                    ) -> tuple[np.ndarray, np.ndarray, dict[int, int]]:
+    """Re-serialize the given clusters into fresh m-row columns.
+
+    Returns (sorted cluster ids (J,) int64, new columns (m, J) u8, used
+    bytes per cluster).  Raises `ColumnOverflowError` when a payload
+    exceeds m.  Each column is byte-identical to a from-scratch pack of the
+    same documents (`pack_column` orders them by doc id).
+    """
+    cols = np.asarray(sorted(docs_by_col), np.int64)
+    out = np.zeros((m, len(cols)), np.uint8)
+    used: dict[int, int] = {}
+    for idx, j in enumerate(cols):
+        payload = pack_column(docs_by_col[int(j)])
+        if len(payload) > m:
+            raise ColumnOverflowError(int(j), len(payload), m)
+        out[:len(payload), idx] = np.frombuffer(payload, np.uint8)
+        used[int(j)] = len(payload)
+    return cols, out, used
 
 
 def build_chunked_db(texts: Sequence[bytes], embeddings: np.ndarray,

@@ -103,12 +103,15 @@ class PirRagSystem:
               n_clusters: int, kmeans_iters: int = 25, chunk_size: int = 256,
               balance_factor: float | None = None, seed: int = 0,
               impl: str = "auto", q_switch: int | None = 1 << 16,
+              doc_ids: Sequence[int] | None = None,
               device: str | torch.device | None = None) -> "PirRagSystem":
         """Offline setup: K-means → chunk-transposed DB → PIR hint.
 
         ``seed`` feeds two independent streams: cluster seeding and the
         public LWE matrix seed (`cfg.a_seed`, bitwise the JAX package's).
-        Runs on ``device`` (default ``cuda``; raises without a card).
+        ``doc_ids`` (default 0..N−1) keeps external document ids, as a
+        live index's full rebuild needs.  Runs on ``device`` (default
+        ``cuda``; raises without a card).
         """
         dev = resolve_device(device)
         t0 = time.perf_counter()
@@ -131,7 +134,7 @@ class PirRagSystem:
         system = cls._from_parts(texts, embf, cents, assign, n_clusters,
                                  a_seed=a_seed, chunk_size=chunk_size,
                                  q_switch=q_switch, impl=impl, device=dev,
-                                 t0=t0)
+                                 t0=t0, doc_ids=doc_ids)
         system.kmeans_seconds = kmeans_s
         return system
 
@@ -139,11 +142,12 @@ class PirRagSystem:
     def _from_parts(cls, texts, embf: np.ndarray, cents: np.ndarray,
                     assign: np.ndarray, n_clusters: int, *, a_seed: int,
                     chunk_size: int, q_switch: int | None, impl: str,
-                    device: torch.device, t0: float) -> "PirRagSystem":
+                    device: torch.device, t0: float,
+                    doc_ids: Sequence[int] | None = None) -> "PirRagSystem":
         """Pack, upload and hint a clustered corpus (build's second half)."""
         t_pack = time.perf_counter()
         db = chunking.build_chunked_db(texts, embf, assign, n_clusters,
-                                       chunk_size)
+                                       chunk_size, doc_ids=doc_ids)
         pack_s = time.perf_counter() - t_pack
         cfg = pir.make_config(db.m, db.n, impl=impl, q_switch=q_switch,
                               a_seed=a_seed)

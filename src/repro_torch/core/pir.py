@@ -9,7 +9,9 @@ Protocol roles (honest-but-curious server):
             client:  decode(ans − H·s) → column i of D
 
 All three products go through the exact mod-2^32 CUDA kernel on a card
-(`kernels.ops`), the plain PyTorch version on the CPU.  u32 values are
+(`kernels.ops`), the plain PyTorch version on the CPU.  A column swap (the
+live index) patches the hint with ΔH = (D_new − D_old)[:, J]·A[J, :]
+through the delta-hint kernel instead of a new setup.  u32 values are
 int32 tensors holding the same bits.
 """
 from __future__ import annotations
@@ -91,6 +93,65 @@ class PIRServer:
         if self.cfg.params.q_switch is not None:
             ans = lwe.switch_modulus(ans, self.cfg.params.q_switch)
         return ans
+
+    def _check_swap(self, cols: torch.Tensor, new_cols: torch.Tensor
+                    ) -> torch.Tensor:
+        cols = torch.as_tensor(cols, dtype=torch.int64, device=self.device)
+        if (tuple(new_cols.shape) != (self.cfg.m, cols.numel())
+                or new_cols.dtype != torch.uint8
+                or new_cols.device != self.device):
+            raise ValueError(f"new_cols must be ({self.cfg.m}, {cols.numel()})"
+                             f" uint8 on {self.device}, got "
+                             f"{tuple(new_cols.shape)} {new_cols.dtype} on "
+                             f"{new_cols.device}")
+        return cols
+
+    def stage_delta(self, cols: torch.Tensor, new_cols: torch.Tensor
+                    ) -> torch.Tensor:
+        """The hint delta ΔH = (D_new − D_old)[:, J]·A[J, :] of a column swap,
+        without touching ``self.db``.
+
+        Reads the old columns from the live DB, so it must be queued before
+        any donating scatter of the same swap.  cols: (J,) column ids;
+        new_cols: (m, J) uint8 on the server's device.  Returns (m, k)
+        int32-held u32.  The JAX twin pads J to a power of two to reuse
+        compiled shapes; its pad slots add exactly 0, so ΔH is the same.
+        """
+        cols = self._check_swap(cols, new_cols)
+        old_cols = self.db[:, cols]
+        a_j = self.a_matrix[cols]
+        return ops.delta_gemm(new_cols, old_cols, a_j, impl=self.cfg.impl)
+
+    def stage_scatter(self, cols: torch.Tensor, new_cols: torch.Tensor, *,
+                      donate: bool = False) -> torch.Tensor:
+        """The patched DB for a column swap; ``self.db`` is not reassigned.
+
+        ``donate=True`` writes the columns into the live DB tensor itself:
+        only a caller that publishes the result at once may pass it (the
+        live index does so in its publish step).
+        """
+        cols = self._check_swap(cols, new_cols)
+        return ops.scatter_columns(self.db, cols, new_cols, donate=donate)
+
+    def stage_update(self, cols: torch.Tensor, new_cols: torch.Tensor, *,
+                     donate: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(new DB, ΔH) for a column swap without publishing it:
+        `stage_delta` (which reads the old columns first), then
+        `stage_scatter`."""
+        delta_h = self.stage_delta(cols, new_cols)
+        return self.stage_scatter(cols, new_cols, donate=donate), delta_h
+
+    def update_columns(self, cols: torch.Tensor, new_cols: torch.Tensor, *,
+                       donate: bool = False) -> torch.Tensor:
+        """Replace DB columns J and return the exact hint delta ΔH.
+
+        The hint is linear in the DB, so ``hint + ΔH`` equals `setup()` on
+        the updated DB bit for bit (all arithmetic exact mod 2^32).
+        """
+        new_db, delta_h = self.stage_update(cols, new_cols, donate=donate)
+        self.db = new_db
+        return delta_h
 
 
 @dataclasses.dataclass

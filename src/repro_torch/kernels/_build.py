@@ -27,11 +27,12 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / ".build"
-SOURCES = ("modmatmul", "kmeans_assign")
+SOURCES = ("modmatmul", "kmeans_assign", "delta_gemm")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: launch count per kernel entry, read by ``ops.launch_counts``
-LAUNCHES = {"modmatmul_u8": 0, "modmatmul_u32": 0, "kmeans_assign": 0}
+LAUNCHES = {"modmatmul_u8": 0, "modmatmul_u32": 0, "kmeans_assign": 0,
+            "delta_gemm": 0, "add_delta": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "modmatmul": {"modmatmul_u8": (_P, _P, _P, _I, _I, _I, _P),
                   "modmatmul_u32": (_P, _P, _P, _I, _I, _I, _P)},
     "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _I, _I, _I, _P)},
+    "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _I, _I, _I, _P),
+                   "add_delta_u32": (_P, _P, _I, _P)},
 }
 
 

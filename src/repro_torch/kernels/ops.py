@@ -1,6 +1,6 @@
 """Kernel dispatch (twin of ``repro/kernels/ops.py``).
 
-Every entry takes ``impl``:
+Every kernel entry takes ``impl``:
 
   impl="auto"  — the CUDA kernel for CUDA tensors, the plain PyTorch
                  version (`ref`) for CPU tensors
@@ -8,6 +8,9 @@ Every entry takes ``impl``:
   impl="torch" — the plain PyTorch version on whatever device
 
 There is no fallback: a CUDA tensor either launches its kernel or raises.
+The products wear `obs.kernel_annotation` (a no-op unless turned on).
+`scatter_columns` has no kernel (the JAX package leaves it to XLA too): it
+is ``index_copy`` on every device.
 u32 operands are int32 tensors holding the same bits (see ``_common``).
 The kernels mask ragged edges themselves, so nothing here pads.
 """
@@ -16,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.delta_gemm import add_delta_cuda, delta_gemm_cuda
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
 from repro_torch.kernels.modmatmul import modmatmul_cuda
+from repro_torch.obs.trace import kernel_annotation
 
 
 def _route(impl: str, *tensors: torch.Tensor) -> str:
@@ -42,10 +47,10 @@ def _matmul_u32(left: torch.Tensor, right: torch.Tensor, impl: str
         raise TypeError(f"right must be int32-held u32, got {right.dtype}")
     was_vec = right.dim() == 1
     r2 = right[:, None] if was_vec else right
-    if _route(impl, left, r2) == "cuda":
-        out = modmatmul_cuda(left, r2)
-    else:
-        out = ref.modmatmul_ref(left, r2)
+    route = _route(impl, left, r2)
+    with kernel_annotation(f"pirrag.modmatmul.{route}"):
+        out = (modmatmul_cuda(left, r2) if route == "cuda"
+               else ref.modmatmul_ref(left, r2))
     return out[:, 0] if was_vec else out
 
 
@@ -78,6 +83,60 @@ def mod_u32_matmul(left: torch.Tensor, right: torch.Tensor, *,
     if left.dtype != torch.int32:
         raise TypeError(f"left must be int32-held u32, got {left.dtype}")
     return _matmul_u32(left, right, impl)
+
+
+def delta_gemm(new_cols: torch.Tensor, old_cols: torch.Tensor,
+               a_j: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Sparse hint delta ΔH = (new − old)·A_J, exact mod 2^32.
+
+    The live-index hot path (`PIRServer.stage_delta`).  new_cols/old_cols:
+    (m, J) uint8; a_j: (J, k) int32-held u32 → (m, k) int32-held u32.  The
+    CUDA kernel forms the difference in registers and runs one product.
+    """
+    if new_cols.dtype != torch.uint8 or old_cols.dtype != torch.uint8:
+        raise TypeError(f"new/old columns must be uint8, got "
+                        f"{new_cols.dtype}, {old_cols.dtype}")
+    if a_j.dtype != torch.int32:
+        raise TypeError(f"a_j must be int32-held u32, got {a_j.dtype}")
+    route = _route(impl, new_cols, old_cols, a_j)
+    with kernel_annotation(f"pirrag.delta_gemm.{route}"):
+        if route == "cuda":
+            return delta_gemm_cuda(new_cols, old_cols, a_j)
+        return ref.delta_gemm_ref(new_cols, old_cols, a_j)
+
+
+def scatter_columns(db: torch.Tensor, cols: torch.Tensor,
+                    new_cols: torch.Tensor, *, donate: bool = False
+                    ) -> torch.Tensor:
+    """db with columns ``cols`` replaced by ``new_cols``.
+
+    ``donate=False`` returns a fresh tensor and leaves ``db`` as it was.
+    ``donate=True`` writes the columns into ``db`` itself (``index_copy_``)
+    and returns it: on a card the write is queued on the stream that serves
+    reads, so answers enqueued before it still read the old columns.
+    cols: (J,) int64 distinct column ids; new_cols: (m, J) uint8.
+    """
+    cols = cols.to(device=db.device, dtype=torch.int64)
+    if donate:
+        return db.index_copy_(1, cols, new_cols)
+    return db.index_copy(1, cols, new_cols)
+
+
+def add_delta(hint: torch.Tensor, delta: torch.Tensor, *,
+              impl: str = "auto") -> torch.Tensor:
+    """hint + delta (exact mod 2^32), written into ``delta``'s buffer.
+
+    ΔH exists only to be folded into the hint, so its buffer becomes the
+    patched hint; the hint itself is never written, since in-flight decodes
+    may still read it.  Returns ``delta``.  On a card the add is the CUDA
+    kernel, with no int64 temporaries the size of the hint.
+    """
+    if hint.shape != delta.shape:
+        raise ValueError(f"shapes differ: {tuple(hint.shape)} vs "
+                         f"{tuple(delta.shape)}")
+    if _route(impl, hint, delta) == "cuda":
+        return add_delta_cuda(hint, delta)
+    return delta.copy_(ref.add_delta_ref(hint, delta))
 
 
 def kmeans_assign(x: torch.Tensor, c: torch.Tensor, *, impl: str = "auto"

@@ -46,6 +46,23 @@ def modmatmul_ref(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return wrap_i32(lo + (mid << 16))
 
 
+def delta_gemm_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,
+                   a_j: torch.Tensor) -> torch.Tensor:
+    """Exact ``ΔH = (new − old) @ a_j mod 2^32`` as int32-held u32.
+
+    new_cols, old_cols: (m, J) uint8; a_j: (J, k) int32-held u32.  The
+    difference wraps to its mod-2^32 residue in int64, then goes through
+    `modmatmul_ref` as a u32 left operand.
+    """
+    diff = wrap_i32(new_cols.to(torch.int64) - old_cols.to(torch.int64))
+    return modmatmul_ref(diff, a_j)
+
+
+def add_delta_ref(hint: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``hint + delta mod 2^32`` of two int32-held u32 tensors (new tensor)."""
+    return wrap_i32(as_i64(hint) + as_i64(delta))
+
+
 def kmeans_assign_ref(x: torch.Tensor, c: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unfused nearest-centroid assignment: (assign (N,) i32, min_d2 (N,) f32).

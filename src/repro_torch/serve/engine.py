@@ -1,0 +1,386 @@
+"""The synchronous PIR serve loop: deadline batching and epoch admission
+(twin of ``repro/serve/engine.py``'s `PIRServeLoop`).
+
+Each tick commits pending mutations, cuts a batch, queues its encryption,
+answer and decode on the device, waits for them and re-ranks on the host
+before returning.  Requests formed against a superseded epoch are rejected
+and re-queued under a bounded retry budget.  Spans time every stage and
+`BatchTiming` is built from their boundaries, so the Chrome-trace export
+under a fake clock is byte-identical to the JAX package's loop.
+
+The per-batch LWE randomness comes from one `torch.Generator` seeded from
+``seed`` (the JAX loop splits a threefry key per batch); decryption is
+exact, so responses do not depend on it.  The pipelined engine, shadow
+commits, the generation stage, keyed lookups and answer-fault injection
+are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from collections import deque
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.fleet.faults import InjectedCommitFault
+from repro_torch.fleet.retry import DEFAULT_POLICY, RetryPolicy
+from repro_torch.obs import Obs
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    query_emb: np.ndarray
+    t_arrival: float
+    epoch: int = 0                 # hint epoch the query was formed against
+    retries: int = 0
+    top_k: int = 5                 # per-request result size
+    multi_probe: int = 1           # clusters to fetch
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchTiming:
+    """Per-batch latency components, shared by every response in the batch.
+
+    ``t_plan`` is when the batch's encode began — a request's queue time is
+    ``t_plan − t_arrival``.  ``encode_s`` is host-side query formulation +
+    device enqueue; ``gemm_s`` the wait for the device results; ``decode_s``
+    host-side parse + re-rank.
+    """
+    t_plan: float
+    encode_s: float
+    gemm_s: float
+    decode_s: float
+
+
+@dataclasses.dataclass
+class Response:
+    rid: int
+    top: list
+    t_done: float
+    batch_size: int
+    epoch: int = 0
+    retries: int = 0
+    t_arrival: float = 0.0               # copied from the request
+    timing: BatchTiming | None = None    # its batch's latency components
+    failed: bool = False                 # terminal: retry budget/deadline hit
+
+
+class DeadlineBatcher:
+    """Cut a batch at max_batch or when the head request ages past deadline."""
+
+    def __init__(self, *, max_batch: int = 64, deadline_ms: float = 20.0):
+        self.max_batch = max_batch
+        self.deadline_ms = deadline_ms
+        self.queue: deque[Request] = deque()
+
+    @property
+    def depth(self) -> int:
+        """Requests currently queued."""
+        return len(self.queue)
+
+    def submit(self, req: Request):
+        """Append an arriving request (FIFO tail)."""
+        self.queue.append(req)
+
+    def requeue(self, req: Request):
+        """Put ONE rejected request back at the head (it keeps its arrival)."""
+        self.queue.appendleft(req)
+
+    def requeue_front(self, reqs: Iterable[Request]):
+        """Put rejected requests back at the head, preserving THEIR order."""
+        self.queue.extendleft(reversed(list(reqs)))
+
+    def ready(self, now: float) -> bool:
+        """True when a batch should be cut: size or head-age trigger."""
+        if not self.queue:
+            return False
+        if len(self.queue) >= self.max_batch:
+            return True
+        age_ms = (now - self.queue[0].t_arrival) * 1e3
+        return age_ms >= self.deadline_ms
+
+    def cut(self) -> list[Request]:
+        """Dequeue up to max_batch requests in arrival order."""
+        batch = []
+        while self.queue and len(batch) < self.max_batch:
+            batch.append(self.queue.popleft())
+        return batch
+
+
+def _wait(pending) -> None:
+    """Block until the device work that produced ``pending`` is done: a
+    wait on each tensor's current stream (nothing to wait for on the CPU)."""
+    for t in pending:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+
+
+class PIRServeLoop:
+    """Synchronous deadline-batched serving; optionally wraps a LiveIndex.
+
+    `system` may be a PirRagSystem (static corpus) or, with `live=...` (or
+    a LiveIndex passed as `system`), the live index whose `.system` is
+    queried at its current epoch.
+    """
+
+    #: span attribute naming this engine (registered enum in obs.scrub)
+    ENGINE = "sync"
+
+    def __init__(self, system, *, max_batch: int = 64,
+                 deadline_ms: float = 20.0,
+                 clock: Callable[[], float] = time.perf_counter,
+                 live=None, seed: int = 0, obs: Obs | None = None,
+                 retry: RetryPolicy | None = DEFAULT_POLICY):
+        self.live = live if live is not None else (
+            system if hasattr(system, "epochs") else None)
+        self.system = system if self.live is None else self.live.system
+        self.batcher = DeadlineBatcher(max_batch=max_batch,
+                                       deadline_ms=deadline_ms)
+        self.clock = clock
+        # Spans time every tick stage (BatchTiming is built from their
+        # boundaries); Obs(trace=False) keeps the timeline without
+        # retaining spans.  Pass Obs(trace=True, clock=<same clock>) to
+        # export traces.
+        self.obs = obs if obs is not None else Obs(clock=clock, trace=False)
+        if self.live is not None:
+            self.live.set_obs(self.obs)
+        self.responses: list[Response] = []
+        self.mutations: deque = deque()
+        self.stale_retries = 0
+        # Bounded retry: every re-admission charges the request's budget;
+        # exhaustion or a blown deadline yields a TERMINAL failed response.
+        # retry=None restores unbounded requeueing.
+        self.retry = retry
+        self.failed_requests = 0
+        self._backoff: list = []      # (ready_t, seq, Request) min-heap
+        self._seq = 0                 # heap tiebreak = admission order
+        self._tick_no = 0
+        # Commit-failure retry state: an injected stage failure leaves the
+        # journal batch pending; the commit is retried under tick backoff.
+        self._commit_retry = False
+        self._commit_attempts = 0
+        self._commit_not_before = 0
+        self.seed = seed
+        self._gen: torch.Generator | None = None   # per-batch LWE stream
+
+    @property
+    def epoch(self) -> int:
+        """Published epoch requests are admitted at (0 for static corpora)."""
+        return self.live.epoch if self.live is not None else 0
+
+    def submit(self, rid: int, query_emb: np.ndarray, *, top_k: int = 5,
+               multi_probe: int = 1, epoch: int | None = None):
+        """A client submits a query formed against its cached hint's epoch.
+
+        ``epoch=None`` (the default) models a freshly synced client and
+        stamps the published head.
+        """
+        self.batcher.submit(Request(rid, query_emb, self.clock(),
+                                    epoch=self.epoch if epoch is None
+                                    else epoch, top_k=top_k,
+                                    multi_probe=multi_probe))
+
+    def submit_mutation(self, mut):
+        """Queue a journal record; folded into an epoch at the next tick."""
+        if self.live is None:
+            raise ValueError("mutations need a LiveIndex")
+        self.mutations.append(mut)
+
+    def _commit_mutations(self):
+        """Fold queued mutations into one epoch between query batches."""
+        if self.live is None or not (self.mutations or self._commit_retry):
+            return None
+        if self._tick_no < self._commit_not_before:
+            return None                  # backing off after a failed commit
+        while self.mutations:
+            self.live.journal.append(self.mutations.popleft())
+        try:
+            patch = self.live.commit()
+        except InjectedCommitFault:
+            self._commit_failed()
+            return None
+        self._commit_retry = False
+        self._commit_attempts = 0
+        return patch
+
+    def _commit_failed(self):
+        """Record one failed commit attempt and arm the tick backoff."""
+        self._commit_attempts += 1
+        self._commit_retry = True
+        self._commit_not_before = (self._tick_no
+                                   + min(2 ** (self._commit_attempts - 1), 16))
+        self.obs.counter("fleet.commit_failures").inc()
+
+    # -- admission -------------------------------------------------------------
+
+    def _admit(self, batch: list[Request], cur: int,
+               now: float) -> list[Request]:
+        """Epoch admission control: reject-and-requeue stale requests.
+
+        A query encrypted against a superseded hint would decode garbage,
+        so it is rejected; the client syncs its cached hint and re-encrypts
+        against the head.  Retried requests go back to the queue head in
+        their original order — after their backoff, if the policy sets one
+        — unless the retry charge exhausts their budget or deadline, which
+        ends them with a terminal failed response.
+        """
+        fresh = [r for r in batch if r.epoch == cur]
+        stale = [r for r in batch if r.epoch != cur]
+        if stale:
+            self.stale_retries += len(stale)
+            self.obs.counter("serve.stale_retries").inc(len(stale))
+            for r in stale:
+                r.retries += 1
+            kept, give_up = self._split_budget(stale, now)
+            for r in kept:
+                r.epoch = cur
+            self._requeue_retries(kept, now)
+            self._fail(give_up, cur, now)
+        return fresh
+
+    def _split_budget(self, reqs: list[Request],
+                      now: float) -> tuple[list[Request], list[Request]]:
+        """(still in budget, out of budget) under the retry policy."""
+        if self.retry is None:
+            return reqs, []
+        kept, give_up = [], []
+        for r in reqs:
+            if (self.retry.exhausted(r.retries)
+                    or self.retry.past_deadline(r.t_arrival, now)):
+                give_up.append(r)
+            else:
+                kept.append(r)
+        return kept, give_up
+
+    def _requeue_retries(self, reqs: list[Request], now: float):
+        """Requeue retried requests, honouring the policy's backoff."""
+        if not reqs:
+            return
+        if self.retry is None or self.retry.backoff_base_ms <= 0:
+            self.batcher.requeue_front(reqs)
+            return
+        immediate = []
+        for r in reqs:
+            d = self.retry.backoff_s(r.rid, r.retries)
+            if d <= 0:
+                immediate.append(r)
+            else:
+                self._seq += 1
+                heapq.heappush(self._backoff, (now + d, self._seq, r))
+        if immediate:
+            self.batcher.requeue_front(immediate)
+
+    def _fail(self, reqs: list[Request], epoch: int, now: float):
+        """Terminal failure: emit failed responses (never silence)."""
+        if not reqs:
+            return
+        self.failed_requests += len(reqs)
+        self.obs.counter("serve.failed").inc(len(reqs))
+        hist = self.obs.histogram("serve.retries",
+                                  bounds=(1, 2, 4, 8, 16, 32, 64))
+        for r in reqs:
+            hist.record(r.retries)
+            self.responses.append(Response(
+                r.rid, [], now, 0, epoch=epoch, retries=r.retries,
+                t_arrival=r.t_arrival, failed=True))
+
+    def _release_held(self, now: float):
+        """Move matured backoff requests back to the queue head."""
+        due = []
+        while self._backoff and self._backoff[0][0] <= now:
+            due.append(heapq.heappop(self._backoff))
+        if due:
+            due.sort(key=lambda e: e[1])   # original admission order
+            self.batcher.requeue_front([r for _, _, r in due])
+
+    def _probe_groups(self, fresh: list[Request]
+                      ) -> list[tuple[tuple[str, int], list[Request]]]:
+        """One answer product per multi_probe value, in sorted key order."""
+        groups: dict[tuple[str, int], list[Request]] = {}
+        for r in fresh:
+            groups.setdefault(("query", r.multi_probe), []).append(r)
+        return [(k, groups[k]) for k in sorted(groups)]
+
+    def _serving_system(self):
+        return self.live.system if self.live is not None else self.system
+
+    def _generator(self, device: torch.device) -> torch.Generator:
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device=device)
+            self._gen.manual_seed(self.seed)
+        return self._gen
+
+    # -- the synchronous tick -------------------------------------------------
+
+    def tick(self, force: bool = False) -> int:
+        """Serve one batch if ready; returns number of requests served.
+
+        force=True flushes a partial batch regardless of the deadline
+        (used by drain) WITHOUT touching the configured deadline_ms.
+
+        The tick is one root span; plan (encode + enqueue) / gemm (device
+        wait) / complete (parse + re-rank) are nested spans whose
+        boundaries ARE the `BatchTiming` components.
+        """
+        self._tick_no += 1
+        with self.obs.span("serve.tick", engine=self.ENGINE) as tick_sp:
+            self.obs.gauge("serve.queue_depth").set(self.batcher.depth)
+            self._commit_mutations()
+            now = self.clock()
+            self._release_held(now)
+            if (not self.batcher.ready(now)
+                    and not (force and self.batcher.queue)):
+                return 0
+            cur = self.epoch
+            fresh = self._admit(self.batcher.cut(), cur, now)
+            if not fresh:
+                return 0
+            tick_sp.set(batch=len(fresh), epoch=cur)
+
+            system = self._serving_system()
+            gen = self._generator(system.device)
+            for kind, reqs in self._probe_groups(fresh):
+                with self.obs.span("serve.plan", batch=len(reqs),
+                                   kind=kind[0],
+                                   multi_probe=kind[1]) as sp_plan:
+                    embs = np.stack([r.query_emb for r in reqs])
+                    infl = system.query_batch_async(
+                        embs, top_k=[r.top_k for r in reqs],
+                        multi_probe=kind[1], generator=gen)
+                with self.obs.span("serve.gemm", batch=len(reqs)) as sp_gemm:
+                    _wait(infl.pending)
+                with self.obs.span("serve.complete",
+                                   batch=len(reqs)) as sp_done:
+                    results = infl.complete()
+                self._append(reqs, results, cur, sp_done.t1, BatchTiming(
+                    t_plan=sp_plan.t0, encode_s=sp_plan.dur,
+                    gemm_s=sp_gemm.dur, decode_s=sp_done.dur))
+            return len(fresh)
+
+    def _append(self, reqs: list[Request], results: list, epoch: int,
+                t_done: float, timing: BatchTiming):
+        """Append one served group's responses (shared batch timing)."""
+        self.obs.counter("serve.responses").inc(len(reqs))
+        self.obs.histogram("serve.batch_size",
+                           bounds=(1, 2, 4, 8, 16, 32, 64, 128)
+                           ).record(len(reqs))
+        lat_hist = self.obs.histogram("serve.latency_ms")
+        retry_hist = self.obs.histogram("serve.retries",
+                                        bounds=(1, 2, 4, 8, 16, 32, 64))
+        for req, top in zip(reqs, results):
+            lat_hist.record((t_done - req.t_arrival) * 1e3)
+            retry_hist.record(req.retries)
+            # batch_size = this group's GEMM width, not the tick total
+            self.responses.append(Response(
+                req.rid, top, t_done, len(reqs), epoch=epoch,
+                retries=req.retries, t_arrival=req.t_arrival, timing=timing))
+
+    def drain(self):
+        """Serve everything still queued, force-flushing partial batches."""
+        while (self.batcher.queue or self.mutations or self._backoff
+               or self._commit_retry):
+            self.tick(force=True)

@@ -102,3 +102,96 @@ def test_kmeans_assign_earliest_tie(cuda):
     got_a, _ = ops.kmeans_assign(x, c, impl="cuda")
     assert int(got_a.max()) < 40
     assert torch.equal(got_a, ops.kmeans_assign(x, c0, impl="cuda")[0])
+
+
+def _u8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("m,j,k", [
+    (1, 1, 1), (100, 7, 33), (257, 51, 129), (31, 33, 1027),
+    (1000, 256, 1024), (4099, 51, 1024),
+])
+def test_delta_gemm_bitwise(cuda, m, j, k):
+    rng = np.random.default_rng(m + 3 * j + k)
+    new, old, a_j = _u8(rng, (m, j), cuda), _u8(rng, (m, j), cuda), \
+        _u32(rng, (j, k), cuda)
+    ops.reset_launch_counts()
+    got = ops.delta_gemm(new, old, a_j)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["delta_gemm"] == 1
+    assert torch.equal(got, ref.delta_gemm_ref(new, old, a_j))
+
+
+@pytest.mark.parametrize("new_val,old_val", [(255, 0), (0, 255)])
+def test_delta_gemm_wraparound(cuda, new_val, old_val):
+    m, j, k = 300, 70, 45
+    new = torch.full((m, j), new_val, dtype=torch.uint8, device=cuda)
+    old = torch.full((m, j), old_val, dtype=torch.uint8, device=cuda)
+    a_j = torch.full((j, k), -1, dtype=torch.int32, device=cuda)
+    got = ops.delta_gemm(new, old, a_j, impl="cuda")
+    assert torch.equal(got, ref.delta_gemm_ref(new, old, a_j))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_add_delta_bitwise(cuda, n, offset):
+    """offset 1 starts both operands 4 bytes into their buffers, off the
+    16-byte alignment the vector path needs."""
+    rng = np.random.default_rng(n + offset)
+    hint = _u32(rng, (n + offset,), cuda)[offset:]
+    delta = _u32(rng, (n + offset,), cuda)[offset:]
+    hint[0] = -1
+    delta[0] = -1                                   # wraps
+    want = ref.add_delta_ref(hint, delta)
+    keep = hint.clone()
+    ops.reset_launch_counts()
+    got = ops.add_delta(hint, delta)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["add_delta"] == 1
+    assert got.data_ptr() == delta.data_ptr()
+    assert torch.equal(got, want) and torch.equal(hint, keep)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_scatter_columns_on_the_card(cuda, donate):
+    rng = np.random.default_rng(4)
+    db = _u8(rng, (513, 40), cuda)
+    before = db.clone()
+    cols = torch.tensor([0, 7, 8, 39], device=cuda)
+    new = _u8(rng, (513, 4), cuda)
+    got = ops.scatter_columns(db, cols, new, donate=donate)
+    want = before.clone()
+    want[:, cols] = new
+    assert torch.equal(got, want)
+    assert torch.equal(db, want if donate else before)
+
+
+def test_live_commit_on_the_card(cuda):
+    """A small live index on the card: each delta epoch launches the
+    delta-hint and add kernels, and its patched hint equals setup()."""
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.update import HintCache, LiveIndex
+    corp = corpus_lib.make_corpus(0, 400, emb_dim=16, n_topics=6)
+    live = LiveIndex.build(corp.texts, corp.embeddings, n_clusters=6,
+                           kmeans_iters=5, device=cuda)
+    cache = HintCache(live.system.hint, live.system.cfg)
+    cents = live.system.centroids
+    for step in range(3):
+        ops.reset_launch_counts()
+        # a replace at its own cluster's centroid with a shorter text, an
+        # insert at the centroid of a column with room, and a delete: no
+        # column can overflow, so the epoch is a delta
+        live.replace(step, b"rev", cents[live._cluster_of[step]])
+        room = [j for j in range(len(cents))
+                if live.system.db.m - live._used[j] >= 16 + 16 + 3]
+        live.insert(9000 + step, b"new", cents[room[step % len(room)]])
+        live.delete(200 + step)
+        assert not live.commit().is_full
+        counts = ops.launch_counts()
+        assert counts["delta_gemm"] == 1 and counts["add_delta"] == 1
+        assert torch.equal(live.system.server.setup(), live.system.hint)
+        assert np.array_equal(live.system.server.db.cpu().numpy(),
+                              live.system.db.matrix)
+        cache.sync(live.epochs)
+        assert torch.equal(cache.hint, live.system.hint)

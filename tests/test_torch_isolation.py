@@ -3,6 +3,7 @@
 Each check runs in a fresh interpreter with ``jax`` and ``repro`` blocked in
 ``sys.modules``, so any import of either fails there.
 """
+import json
 import pathlib
 import shutil
 import subprocess
@@ -93,3 +94,46 @@ def test_chip_smoke_rehearsal_runs_every_phase_without_jax():
         assert any(f'"phase": {phase}' in ln for ln in lines), phase
     assert lines[-1].startswith('{"kernels": [')
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_rehearsal_runs_the_live_index_and_serve_phases():
+    code = ("import runpy\n"
+            f"sys.argv = [{str(ROOT / 'chip_smoke.py')!r}, '--rehearse']\n"
+            f"runpy.run_path(sys.argv[0], run_name='__main__')")
+    out = _run(code)
+    assert out.returncode == 3, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    for phase in ('"U"', '"U rebuild"', '"launches U"', '"S"',
+                  '"launches S"'):
+        assert any(f'"phase": {phase}' in ln for ln in lines), phase
+    table = json.loads(lines[-1])["kernels"]
+    assert [k["name"] for k in table] == ["modmatmul_u8", "modmatmul_u32",
+                                          "kmeans_assign", "delta_gemm",
+                                          "add_delta"]
+    for k in table:
+        assert {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "replaces", "source"} <= set(k)
+        assert (ROOT / k["source"]).exists()
+    s = next(json.loads(ln) for ln in lines if '"phase": "S"' in ln)
+    assert s["served"] + s["failed"] == s["offered"]
+
+
+def test_live_entry_points_raise_without_a_card():
+    code = ("import numpy as np, torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "from repro_torch import convert\n"
+            "from repro_torch.update import LiveIndex\n"
+            "e = np.zeros((4, 8), np.float32); t = [b'x'] * 4\n"
+            "for fn in (lambda: LiveIndex.build(t, e, n_clusters=2),\n"
+            "           lambda: convert.live_from_state(t, e, centroids=e[:2],"
+            " assignment=np.zeros(4, int), n_clusters=2, a_seed=1)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as err:\n"
+            "        assert 'device' in str(err), err\n"
+            "    else:\n"
+            "        raise SystemExit('ran without a card')\n"
+            "print('RAISED')")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED" in out.stdout

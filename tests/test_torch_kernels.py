@@ -138,5 +138,6 @@ def test_cpu_path_does_not_count_launches():
     db, q = _db_q(7, 8, 8, 2)
     ops.modmatmul(torch.from_numpy(db), u32_to_torch(q, CPU))
     assert set(ops.launch_counts()) == {"modmatmul_u8", "modmatmul_u32",
-                                        "kmeans_assign"}
+                                        "kmeans_assign", "delta_gemm",
+                                        "add_delta"}
     assert all(v == 0 for v in ops.launch_counts().values())
