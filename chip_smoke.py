@@ -10,8 +10,10 @@ path at full width and checks what comes out.  The phases, in order:
   device   the card's name and power limit, as nvidia-smi reports them
   build    one nvcc per kernel source, all started together
   kernels  every kernel against its plain version: the mod-2^32 products
-           (modmatmul, delta_gemm) and the u32 add (add_delta) bitwise on
-           ragged shapes, on wraparound operands and on row slices of each
+           (modmatmul, delta_gemm, bucketed_modmatmul) and the u32 add
+           (add_delta) bitwise on ragged shapes (for the grouped product: a
+           bucket of one row, unequal heights, C = 1 and C > 1, W off the
+           tile), on wraparound operands and on row slices of each
            main-path shape; k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
            and assignments equal wherever the plain top-2 gap exceeds
            1e-5 * (|x|^2 + |c|^2)
@@ -30,6 +32,20 @@ path at full width and checks what comes out.  The phases, in order:
   S        `PIRServeLoop` over phase U's index: 64 requests, batches of 16,
            a mutation batch every 2 ticks; served + failed == offered and
            every anchor in its top-10 at the epoch its response names
+  P        batch-PIR on phase B's system: `enable_batch` at kappa = 4 (12
+           buckets; the card memory is reckoned first), then the serve loop
+           over phase U's live index with multi_probe = kappa queries, two
+           bucket-routed commits and one insert that overflows a bucket's
+           row budget and rebuilds it; after each commit every bucket hint
+           equals a fresh setup() bitwise and the buckets' sub-DBs equal the
+           host copy; served + failed == offered, every anchor in its
+           top-10, one bucketed pass per served batch; then decoded columns
+           equal the sub-DBs' bytes.  U's and S's live index is then dropped
+           and its card memory must come back without the cycle collector
+  K        keyed lookups at MIND's item-table width (1,000,000 rows of 64
+           f32): `LiveIndex.build_keyed`, lookups through the serve loop's
+           `submit_lookup`, one `replace_row` commit; rows equal table[ids]
+           bitwise, bucket hints equal setup()
   C        the production PIR point (m = 2,097,152, n = 4096, k = 1024,
            q_switch = 2^16): `PIRServer.setup`, `answer` on 64 encrypted
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
@@ -37,8 +53,8 @@ path at full width and checks what comes out.  The phases, in order:
            shape; the hint and the phase-B-width delta checked bitwise
            against the plain versions
 
-Launch counts are set to 0 just before each of phases B, U, S and C and
-read just after it; every kernel of a path must have launched in it.
+Launch counts are set to 0 just before each of phases B, U, S, P, K and C
+and read just after it; every kernel of a path must have launched in it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
 the device's busy share.  Each output line is one JSON object,
@@ -68,6 +84,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch import batchpir  # noqa: E402
+from repro_torch.batchpir.server import bucket_rows  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
@@ -84,11 +102,16 @@ FP32_FLOPS_PER_S = 67e12
 FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             queries=16, c_rows=2_097_152, c_cols=4096, c_batch=64,
             slice_rows=4096, plain_rows=131_072, rebuild_docs=20_000,
-            rebuild_clusters=64, s_requests=64, s_batch=16)
+            rebuild_clusters=64, s_requests=64, s_batch=16, p_kappa=4,
+            p_requests=32, p_batch=16, k_rows=1_000_000, k_dim=64,
+            k_kappa=8, k_requests=32, k_batch=16)
 TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             c_rows=1000, c_cols=256, c_batch=8, slice_rows=64,
             plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
-            s_requests=8, s_batch=4)
+            s_requests=8, s_batch=4, p_kappa=4, p_requests=8, p_batch=4,
+            k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4)
+#: the partition seed phase P's buckets are drawn from (enable_batch's default)
+P_SEED = 101
 #: shares of the clusters phase U's two delta epochs touch (update_bench's
 #: sweep: 5%, then 25%)
 U_SHARES = (0.05, 0.25)
@@ -104,6 +127,9 @@ SOURCES = {
                    "src/repro/kernels/ops.py:204"),
     "add_delta": ("src/repro_torch/kernels/csrc/delta_gemm.cu",
                   "src/repro/kernels/ops.py:125"),
+    "bucketed_modmatmul": ("src/repro_torch/kernels/csrc/"
+                           "bucketed_modmatmul.cu",
+                           "src/repro/kernels/ops.py:263"),
 }
 _NO_INT_MATMUL = ("torch has no integer matmul on CUDA, so no one call "
                   "computes a mod-2^32 product")
@@ -115,6 +141,8 @@ LIBRARY_NOTE = {
     "delta_gemm": _NO_INT_MATMUL,
     "add_delta": "torch.add on int32 tensors: the same bits, by signed "
                  "wraparound (timed only; the port never relies on it)",
+    "bucketed_modmatmul": "torch has no integer matmul on CUDA and no "
+                          "grouped product over ragged heights",
 }
 #: the kernels each path must launch
 PATH_KERNELS = {
@@ -122,6 +150,10 @@ PATH_KERNELS = {
     "U": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign", "delta_gemm",
           "add_delta"),
     "S": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta"),
+    "P": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta",
+          "bucketed_modmatmul"),
+    "K": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta",
+          "bucketed_modmatmul"),
     "C": ("modmatmul_u8", "modmatmul_u32"),
 }
 
@@ -252,6 +284,16 @@ def check_add(card, hint, delta, what):
         raise AssertionError(f"add_delta {what}: kernel != plain")
 
 
+def check_bucketed(card, dbs, qs, what):
+    """bucketed_modmatmul against its plain version, bitwise."""
+    got = ops.bucketed_modmatmul(dbs, qs, impl=card.impl)
+    for b, want in enumerate(ref.bucketed_modmatmul_ref(dbs, qs)):
+        if not torch.equal(got[b], want):
+            raise AssertionError(f"bucketed_modmatmul {what}: bucket {b} "
+                                 f"kernel != plain, max err "
+                                 f"{u32_max_abs_err(got[b], want)}")
+
+
 def check_assign(card, x, c, what):
     """min_d2 allclose(1e-5, 1e-5); assignments equal where the plain
     top-2 gap exceeds 1e-5 · (|x|² + |c|²).  Returns max |Δ min_d2|."""
@@ -331,11 +373,30 @@ def kernel_phase(card, cfg):
     check_add(card, torch.full((5, 7), -1, dtype=torch.int32, device=dev),
               torch.full((5, 7), -1, dtype=torch.int32, device=dev),
               "wraparound")
+    # the grouped product: (heights, W, C); the last two are row slices of
+    # phase P's buckets (3 kappa of them, W = 3n / (3 kappa) to a power of 2)
+    p_width = 1 << max(0, (n_b // cfg["p_kappa"] - 1).bit_length())
+    slices = tuple(max(1, rows - 37 * b) for b in range(3 * cfg["p_kappa"]))
+    bucketed_cases = [((1,), 1, 1), ((64, 1, 96), 32, 1),
+                      ((300, 1, 129, 257), 7, 16), ((5, 0, 1000), 256, 17),
+                      ((4099, 2000, 130), 33, 64), ((1, 2, 3), 300, 65),
+                      (slices, p_width, cfg["p_batch"]), (slices, p_width, 1)]
+    for heights, w, c in bucketed_cases:
+        check_bucketed(card, [_u8(gen, (m, w), dev) for m in heights],
+                       _u32(gen, (len(heights), w, c), dev),
+                       f"{len(heights)} buckets up to {max(heights)} rows, "
+                       f"W {w}, C {c}")
+    check_bucketed(card,
+                   [torch.full((m, 300), 255, dtype=torch.uint8, device=dev)
+                    for m in (129, 3)],
+                   torch.full((2, 300, 5), -1, dtype=torch.int32, device=dev),
+                   "wraparound")
     card.sync()
     emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 1,
          modmatmul_u32_cases=len(u32_cases) + 1, kmeans_assign_cases=6,
          delta_gemm_cases=len(delta_cases) + 2,
          add_delta_cases=len(add_cases) + 2,
+         bucketed_modmatmul_cases=len(bucketed_cases) + 1,
          rule="mod-2^32 products and adds bitwise; kmeans min_d2 "
               "allclose(1e-5,1e-5), assignments equal where top-2 gap > "
               "1e-5*(|x|^2+|c|^2)")
@@ -710,6 +771,323 @@ def phase_s(card, cfg, live, corp):
         top_kernels_ms=top)
 
 
+# --------------------------------------------------------------------------
+# batch-PIR (P) on phase B's system, keyed lookups (K)
+# --------------------------------------------------------------------------
+
+def p_memory(cfg, system):
+    """The card memory phase P holds, reckoned before `enable_batch`: the
+    bucket hints are Σ m_b × k × 4 bytes, and a commit touching one cluster
+    stages three new bucket hints beside the old ones, plus the flat one."""
+    kappa = cfg["p_kappa"]
+    part = batchpir.CuckooPartition.build(system.db.n, 3 * kappa, P_SEED)
+    rows = bucket_rows(part, system.db.used_bytes, system.db.m)
+    k = system.cfg.params.k
+    resident = (system.db.m * system.db.n + 4 * system.db.m * k
+                + sum(rows) * part.width + 4 * sum(rows) * k)
+    staged = 3 * 4 * max(rows) * k + 4 * system.db.m * k
+    return dict(phase="P memory", kappa=kappa, n_buckets=part.n_buckets,
+                width=part.width, sum_rows=sum(rows), max_rows=max(rows),
+                bucket_hint_bytes=4 * sum(rows) * k,
+                sub_db_bytes=sum(rows) * part.width, resident_bytes=resident,
+                staged_commit_bytes=staged, reckoned_peak_bytes=resident
+                + staged)
+
+
+def _bucket_checks(card, live, what):
+    """Every bucket hint equals a fresh setup() of its sub-DB, each sub-DB
+    equals its members' columns of the host mirror (through the card's flat
+    DB, itself held equal to the mirror)."""
+    system = live.system
+    server, part = system.batch.server, system.batch.partition
+    mirror = torch.from_numpy(system.db.matrix).to(card.dev)
+    if not torch.equal(system.server.db, mirror):
+        raise AssertionError(f"{what}: flat DB on the card != host mirror")
+    for b in range(part.n_buckets):
+        sub = server.sub_dbs[b]
+        mem = torch.as_tensor(part.members[b], dtype=torch.int64,
+                              device=card.dev)
+        take = min(sub.shape[0], mirror.shape[0])
+        host = torch.zeros_like(sub)
+        host[:take, :len(mem)] = mirror[:take].index_select(1, mem)
+        if not torch.equal(sub, host):
+            raise AssertionError(f"{what}: bucket {b} sub-DB != host copy")
+        fresh = ops.hint_gemm(sub, server.a_matrix(b), impl=card.impl)
+        if not torch.equal(fresh, server.hints[b]):
+            raise AssertionError(f"{what}: bucket {b} hint != setup()")
+        del fresh, host
+    return part.n_buckets
+
+
+def _bucket_overflow(live, skip):
+    """(cluster, insert text) growing one column past the shortest of its
+    buckets' row budgets while it still fits the flat DB's m rows."""
+    system = live.system
+    server, part = system.batch.server, system.batch.partition
+    best = None
+    for j in range(system.db.n):
+        if j in skip or planner.nearest_centroid(
+                system.centroids[j], system.centroids) != j:
+            continue
+        rows = min(server.cfgs[b].m for b in part.buckets_of(j))
+        grow = rows - live._used[j] + 64
+        text_len = grow - chunking.record_bytes(system.db.emb_dim, 0)
+        if text_len > 0 and live._used[j] + grow <= system.db.m and (
+                best is None or text_len < best[1]):
+            best = (j, text_len)
+    if best is None:
+        raise AssertionError("phase P: no column can overflow only a bucket")
+    return best[0], b"o" * best[1]
+
+
+def _p_commit(card, live, kind, cluster, t_tick):
+    """Check the commit the loop's last tick published: every bucket hint
+    equals setup(), sub-DBs equal the host copy; the split of its time."""
+    st = live.commits[-1]
+    part = live.system.batch.partition
+    checked = _bucket_checks(card, live, f"phase {kind}")
+    return dict(phase=kind, epoch=live.epoch, J=st.touched_clusters,
+                cluster=cluster,
+                touched_buckets=list(part.buckets_of(cluster)),
+                rebuilt_buckets=[], tick_seconds=t_tick,
+                commit_seconds=st.seconds, plan_seconds=st.plan_seconds,
+                repack_seconds=st.repack_seconds,
+                delta_and_publish_seconds=st.seconds - st.plan_seconds
+                - st.repack_seconds, buckets_checked=checked,
+                bucket_hints_equal_setup=True, sub_dbs_equal_host=True)
+
+
+def phase_p(card, cfg, live, corp):
+    """Batch-PIR over phase U's live index: multi-probe serving, two
+    bucket-routed commits and one overflow-forced bucket rebuild."""
+    system = live.system
+    kappa = cfg["p_kappa"]
+    lines = [p_memory(cfg, system)]
+    if card.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    card.sync()
+    t0 = time.perf_counter()
+    bp = system.enable_batch(kappa=kappa, seed=P_SEED)
+    card.sync()
+    enable_s = time.perf_counter() - t0
+    server, part = bp.server, bp.partition
+    heights = [c.m for c in server.cfgs]
+    loop = PIRServeLoop(live, max_batch=cfg["p_batch"], deadline_ms=1e9,
+                        seed=13)
+    rng = np.random.default_rng(14)
+    per_tick = cfg["p_batch"] // 2
+    pool = _stable_docs(live, corp, rng, per_tick + 2)
+    anchors = [d for d, _ in pool[:per_tick]]
+    movers = pool[per_tick:]
+    expect: dict[int, tuple[int, bytes | None]] = {}   # rid → (doc, text)
+    offered = 0
+
+    def submit(doc, emb, text=None):
+        nonlocal offered
+        loop.submit(offered, emb, top_k=10, multi_probe=kappa)
+        expect[offered] = (doc, text)
+        offered += 1
+
+    for t in range(cfg["p_requests"] // per_tick):
+        for d in anchors:
+            submit(d, live._docs[d][1])
+        mover = None
+        if t % 2 == 1:
+            mover = movers[t // 2 % len(movers)]
+            text = _revised(live._docs[mover[0]][0], b"bat:")
+            loop.submit_mutation(journal.replace(mover[0], text,
+                                                 live._docs[mover[0]][1]))
+        epoch0 = live.epoch
+        t1 = time.perf_counter()
+        loop.tick()
+        card.sync()
+        if mover is not None:
+            if live.epoch != epoch0 + 1:
+                raise AssertionError("phase P: a commit did not land")
+            lines.append(_p_commit(card, live, "P commit", mover[1],
+                                   time.perf_counter() - t1))
+            submit(mover[0], live._docs[mover[0]][1], text)
+    # one insert that outgrows a bucket's row budget, not the flat DB's
+    j, big = _bucket_overflow(live, {c for _, c in pool})
+    before = [c.m for c in server.cfgs]
+    new_id = len(corp.texts) + 20_000
+    loop.submit_mutation(journal.insert(new_id, big, system.centroids[j]))
+    t1 = time.perf_counter()
+    loop.tick()
+    card.sync()
+    if live.epochs.epoch == 0 or live.commits[-1].full_rebuild:
+        raise AssertionError("phase P: the overflow insert was not a delta "
+                             "epoch")
+    line = _p_commit(card, live, "P overflow", j,
+                     time.perf_counter() - t1)
+    line["rebuilt_buckets"] = [b for b in range(part.n_buckets)
+                               if server.cfgs[b].m != before[b]]
+    line["insert_bytes"] = len(big)
+    if not line["rebuilt_buckets"]:
+        raise AssertionError("phase P: the overflow insert rebuilt no bucket")
+    lines.append(line)
+    submit(new_id, system.centroids[j], big)
+    loop.drain()
+    # one traced tick: a full batch served, no commit
+    for i in range(cfg["p_batch"]):
+        d = anchors[i % len(anchors)]
+        submit(d, live._docs[d][1])
+    wall, busy, top = traced_ms(card, lambda: loop.tick(force=True))
+    loop.drain()
+
+    served = [r for r in loop.responses if not r.failed]
+    if len(served) + loop.failed_requests != offered:
+        raise AssertionError(f"phase P: {len(served)} served + "
+                             f"{loop.failed_requests} failed != {offered}")
+    for r in served:
+        d, text = expect[r.rid]
+        hit = [t for i, _, t in r.top if i == d]
+        if not hit or (text is not None and hit != [text]):
+            raise AssertionError(f"phase P: request {r.rid} (doc {d}) not "
+                                 f"retrieved at epoch {r.epoch}")
+    timings = list({id(r.timing): r.timing for r in served}.values())
+
+    def med_ms(attr):
+        return 1e3 * float(np.median([getattr(t, attr) for t in timings]))
+
+    lines.append(dict(
+        phase="P", kappa=kappa, n_buckets=part.n_buckets, width=part.width,
+        bucket_rows=heights, sum_rows=sum(heights),
+        sub_db_bytes=server.stored_bytes, bucket_hint_bytes=server.hint_bytes,
+        enable_seconds=enable_s, offered=offered, served=len(served),
+        failed=loop.failed_requests, stale_retries=loop.stale_retries,
+        multi_probe=kappa, batches=len(timings), epochs=live.epoch,
+        encode_ms_median=med_ms("encode_s"), gemm_ms_median=med_ms("gemm_s"),
+        decode_ms_median=med_ms("decode_s"), traced_tick_wall_ms=wall,
+        device_kernel_ms=busy,
+        device_idle_share=None if busy is None else 1.0 - busy / wall,
+        top_kernels_ms=top, max_memory_allocated=(
+            torch.cuda.max_memory_allocated()
+            if card.dev.type == "cuda" else None)))
+    return lines
+
+
+def p_decode_check(card, live, cfg):
+    """One batched query outside the counted run: every placed bucket's
+    decoded column equals the sub-DB's bytes."""
+    bp = live.system.batch
+    gen = torch.Generator(device=card.dev).manual_seed(15)
+    probes = np.random.default_rng(16).choice(bp.partition.n_clusters,
+                                              cfg["p_kappa"], replace=False)
+    qs, st = bp.client.query(gen, probes.tolist())
+    cols = bp.client.recover(bp.server.answer_batch(qs), st)
+    for b, cl in st.placement.items():
+        want = bp.server.sub_dbs[b][:, bp.partition.position(b, cl)]
+        if not np.array_equal(cols[cl], want.cpu().numpy()):
+            raise AssertionError(f"phase P: cluster {cl} decodes wrong from "
+                                 f"bucket {b}")
+    return dict(phase="P decode", probes=len(st.placement),
+                columns_equal_sub_dbs=True)
+
+
+def allocated(card):
+    """Card bytes allocated now (None in a rehearsal)."""
+    if card.dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def freed_line(phase, held, before, after):
+    """The memory a dropped live index gave back; it must be all it held."""
+    if before is not None and before - after < held:
+        raise AssertionError(f"phase {phase}: dropping the live index freed "
+                             f"{before - after} of its {held} card bytes")
+    return dict(phase=f"{phase} freed", held_bytes=held,
+                allocated_before=before, allocated_after=after,
+                cycle_collector="off")
+
+
+def held_bytes(system) -> int:
+    """Card bytes a system holds: flat DB and hint, sub-DBs, bucket hints."""
+    n = system.db.m * system.db.n + system.cfg.hint_bytes
+    if system.batch is not None:
+        n += system.batch.server.stored_bytes + system.batch.server.hint_bytes
+    return n
+
+
+def phase_k(card, cfg):
+    """Keyed lookups at MIND's item-table width: served by `submit_lookup`
+    before and after one `replace_row` commit."""
+    rng = np.random.default_rng(16)
+    v, d, kappa = cfg["k_rows"], cfg["k_dim"], cfg["k_kappa"]
+    table = rng.standard_normal((v, d), dtype=np.float32)
+    t0 = time.perf_counter()
+    live = LiveIndex.build_keyed(table, kappa=kappa, device=card.dev)
+    card.sync()
+    build_s = time.perf_counter() - t0
+    system, lay = live.system, live.system.keyed
+    loop = PIRServeLoop(live, max_batch=cfg["k_batch"], deadline_ms=1e9,
+                        seed=17)
+    asks: dict[int, list[int]] = {}
+
+    def serve(n):
+        for _ in range(n):
+            rid = len(asks)
+            asks[rid] = ((rng.zipf(1.2, size=kappa) - 1) % v).tolist()
+            loop.submit_lookup(rid, asks[rid])
+            loop.tick()
+        loop.drain()
+
+    serve(cfg["k_requests"])
+    # replace two rows in each of two groups: one delta epoch, J = 2
+    new_table = table.copy()
+    groups = rng.choice(lay.n_groups - 1, 2, replace=False)
+    replaced = [int(g) * lay.group_size + i for g in groups for i in (0, 1)]
+    for i in replaced:
+        new_table[i] = rng.standard_normal(d, dtype=np.float32)
+        live.replace_row(i, new_table[i])
+    card.sync()
+    t1 = time.perf_counter()
+    patch = live.commit()
+    card.sync()
+    commit_s = time.perf_counter() - t1
+    if patch.is_full:
+        raise AssertionError("phase K: the replace_row commit was a rebuild")
+    if not torch.equal(system.server.setup(), system.hint):
+        raise AssertionError("phase K: patched hint != setup()")
+    checked = _bucket_checks(card, live, "phase K")
+    serve(cfg["k_requests"] // 2)
+    last = len(asks)                      # a lookup of the replaced rows
+    asks[last] = replaced
+    loop.submit_lookup(last, replaced)
+    loop.drain()
+    served = [r for r in loop.responses if not r.failed]
+    if len(served) + loop.failed_requests != len(asks):
+        raise AssertionError("phase K: served + failed != offered")
+    for r in served:
+        want = (table if r.epoch == 0 else new_table)[asks[r.rid]]
+        if not np.array_equal(r.top, want):
+            raise AssertionError(f"phase K: lookup {r.rid} rows != table[ids] "
+                                 f"at epoch {r.epoch}")
+    if next(r.epoch for r in served if r.rid == last) != 1:
+        raise AssertionError("phase K: the replaced rows were not served at "
+                             "the new epoch")
+    timings = list({id(r.timing): r.timing for r in served}.values())
+    bp = system.batch
+    line = dict(
+        phase="K", rows=v, dim=d, group_size=lay.group_size,
+        groups=lay.n_groups, m=system.db.m, kappa=kappa,
+        n_buckets=bp.partition.n_buckets, width=bp.partition.width,
+        sum_rows=sum(c.m for c in bp.server.cfgs),
+        bucket_hint_bytes=bp.server.hint_bytes, build_seconds=build_s,
+        offered=len(asks), served=len(served), failed=loop.failed_requests,
+        stale_retries=loop.stale_retries, batches=len(timings),
+        gemm_ms_median=1e3 * float(np.median([t.gemm_s for t in timings])),
+        decode_ms_median=1e3 * float(np.median([t.decode_s
+                                                for t in timings])),
+        commit_seconds=commit_s, replaced_rows=len(replaced),
+        patch_bytes=patch.wire_bytes, buckets_checked=checked,
+        rows_equal_table=True, replaced_rows_equal=True,
+        bucket_hints_equal_setup=True)
+    return live, line
+
+
 def phase_c(card, cfg):
     m, n, b = cfg["c_rows"], cfg["c_cols"], cfg["c_batch"]
     pcfg = pir.make_config(m, n, impl="auto")
@@ -758,7 +1136,7 @@ def _bound(bytes_, ops_, rate):
                                        else "operations")
 
 
-def timing_phase(card, cfg, state, launches, u_epochs):
+def timing_phase(card, cfg, state, launches, u_epochs, line_p):
     rows = cfg["plain_rows"]
     db, hint, qs, secrets = (state["db"], state["hint"], state["qs"],
                              state["secrets"])
@@ -885,6 +1263,28 @@ def timing_phase(card, cfg, state, launches, u_epochs):
           12 * words, words, FP32_FLOPS_PER_S,
           "one u32 add per word on the CUDA cores; two words read, one "
           "written", library_ms=lib_ms)
+    del hint_t, delta_t
+
+    # one batch-PIR answer pass at phase P's bucket heights and batch width
+    heights, w, c = line_p["bucket_rows"], line_p["width"], cfg["p_batch"]
+    dbs = [_u8(gen, (m, w), card.dev) for m in heights]
+    q3 = _u32(gen, (len(heights), w, c), card.dev)
+    got = ops.bucketed_modmatmul(dbs, q3, impl=card.impl)
+    want, plain_ms = card.once_ms(lambda: ref.bucketed_modmatmul_ref(dbs, q3))
+    err = max(u32_max_abs_err(g, x) for g, x in zip(got, want))
+    del got, want
+    if err:
+        raise AssertionError(f"bucketed_modmatmul at phase P's shape: max "
+                             f"err {err}")
+    ms = card.time_ms(lambda: ops.bucketed_modmatmul(dbs, q3,
+                                                     impl=card.impl), reps=5)
+    total = sum(heights)
+    entry("bucketed_modmatmul",
+          f"answer pass {len(heights)} buckets, {total}x{w}x{c}", ms,
+          plain_ms, err, total * w + 4 * len(heights) * w * c + 4 * total * c,
+          2 * total * w * c * 4, INT8_OPS_PER_S,
+          "every sub-DB read once, or 4 int8 limb MACs per u8 x u32 MAC on "
+          "the int8 tensor cores")
     return table
 
 
@@ -945,12 +1345,46 @@ def main(argv=None) -> int:
     paths["S"] = ops.launch_counts()
     emit(**line_s)
     emit(phase="launches S", **paths["S"])
-    # a LiveIndex is in a reference cycle (its epoch log's full_fetch hook),
-    # so its 1M-doc system goes only when the cycle collector runs
-    del system, corp, live
-    gc.collect()
+
+    ops.reset_launch_counts()
+    lines_p = phase_p(card, cfg, live, corp)
+    paths["P"] = ops.launch_counts()
+    for line in lines_p:
+        emit(**line)
+    emit(phase="launches P", **paths["P"])
+    line_p = lines_p[-1]
+    if not args.rehearse and paths["P"]["bucketed_modmatmul"] != \
+            line_p["batches"]:
+        raise AssertionError(f"phase P: {paths['P']['bucketed_modmatmul']} "
+                             f"bucketed launches for {line_p['batches']} "
+                             f"served batches")
+    emit(**p_decode_check(card, live, cfg))
+    # U's, S's and P's live index holds no reference cycle: dropping it
+    # returns its card memory with the cycle collector off
+    gc.disable()
+    try:
+        held, before = held_bytes(system), allocated(card)
+        del system, corp, live
+        after = allocated(card)
+    finally:
+        gc.enable()
+    emit(**freed_line("P", held, before, after))
+
+    ops.reset_launch_counts()
+    live, line_k = phase_k(card, cfg)
+    paths["K"] = ops.launch_counts()
+    emit(**line_k)
+    emit(phase="launches K", **paths["K"])
+    gc.disable()
+    try:
+        held, before = held_bytes(live.system), allocated(card)
+        del live
+        after = allocated(card)
+    finally:
+        gc.enable()
+    emit(**freed_line("K", held, before, after))
     if card.dev.type == "cuda":
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()     # C starts from an empty cache, as before
 
     ops.reset_launch_counts()
     state, line_c = phase_c(card, cfg)
@@ -964,7 +1398,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"phase {path}: a kernel of the path "
                                      f"was not launched: {counts}")
 
-    table = timing_phase(card, cfg, state, launches, u_epochs)
+    table = timing_phase(card, cfg, state, launches, u_epochs, line_p)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     if args.rehearse:

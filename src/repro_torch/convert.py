@@ -8,7 +8,11 @@ arrays (for example ``np.asarray(sys.centroids)``, ``sys.assignment``,
 answers equal the reference's bit for bit.  `live_from_state` wraps such a
 system as a `LiveIndex`, so the same mutations through the JAX package's
 live index and the port's give the same patches, DB bytes and hints.
-Nothing here imports JAX.
+``batch=`` carries a batch-PIR subsystem across: its knobs (``kappa``,
+``n_buckets`` and the partition ``seed``, e.g. ``sys.batch.kappa``,
+``sys.batch.partition.n_buckets``, ``sys.batch.seed``) fix the cuckoo
+placement, so the sub-DBs, bucket hints and answers equal the reference's
+too.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -28,16 +32,21 @@ def system_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
                       n_clusters: int, a_seed: int, chunk_size: int = 256,
                       q_switch: int | None = 1 << 16, impl: str = "auto",
                       doc_ids: Sequence[int] | None = None,
+                      batch: dict | None = None,
                       device: str | torch.device | None = None
                       ) -> PirRagSystem:
-    """A `PirRagSystem` on ``device`` from a finished clustering."""
+    """A `PirRagSystem` on ``device`` from a finished clustering; with
+    ``batch`` (`PirRagSystem.enable_batch` keywords) batch-PIR enabled."""
     dev = resolve_device(device)
-    return PirRagSystem._from_parts(
+    system = PirRagSystem._from_parts(
         texts, np.asarray(embeddings, np.float32),
         np.asarray(centroids, np.float32), np.asarray(assignment),
         n_clusters, a_seed=int(a_seed), chunk_size=chunk_size,
         q_switch=q_switch, impl=impl, device=dev, t0=time.perf_counter(),
         doc_ids=doc_ids)
+    if batch is not None:
+        system.enable_batch(**batch)
+    return system
 
 
 def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
@@ -47,6 +56,7 @@ def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
                     compact_every: int | None = None,
                     max_pad_fraction: float = 0.95, chunk_size: int = 256,
                     q_switch: int | None = 1 << 16, impl: str = "auto",
+                    batch: dict | None = None,
                     device: str | torch.device | None = None) -> LiveIndex:
     """A port `LiveIndex` over `system_from_state`'s system.
 
@@ -56,7 +66,8 @@ def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
     system = system_from_state(
         texts, embeddings, centroids=centroids, assignment=assignment,
         n_clusters=n_clusters, a_seed=a_seed, chunk_size=chunk_size,
-        q_switch=q_switch, impl=impl, doc_ids=doc_ids, device=device)
+        q_switch=q_switch, impl=impl, doc_ids=doc_ids, batch=batch,
+        device=device)
     return LiveIndex(system, texts, embeddings, doc_ids=doc_ids,
                      max_pad_fraction=max_pad_fraction,
                      compact_every=compact_every)

@@ -5,8 +5,10 @@ Online (client): pick cluster from PUBLIC centroids → LWE-encrypted one-hot
 → server modular GEMV → decrypt whole cluster → local exact re-rank.
 
 The server never sees the query embedding, the chosen cluster, or the ranked
-results.  This slice ports the legacy (one-hot per probe) path only: no
-batch-PIR, keyed lookups or mesh.
+results.  Two server shapes: the legacy path (one one-hot per probe, one
+GEMM over the whole DB) and, after `enable_batch()`, batch-PIR (cuckoo
+buckets, one bucketed pass for all probes); `build_keyed` serves embedding
+rows by id through batch-PIR.  No mesh.
 """
 from __future__ import annotations
 
@@ -70,9 +72,23 @@ class QueryStats:
     client_ms: float
     server_ms: float
     cluster_index: int            # known to client only
-    mode: str = "legacy"          # one one-hot query per probe
+    mode: str = "legacy"          # "legacy" (P one-hots) | "batch" (cuckoo)
     probes: int = 1               # clusters privately fetched
-    n_buckets: int = 0            # batch-PIR buckets (not ported: always 0)
+    n_buckets: int = 0            # batch mode: bucket queries (incl dummies)
+    hint_bytes: int = 0           # one-time hint downlink of the path used
+
+
+@dataclasses.dataclass
+class LookupStats:
+    """Accounting for one keyed embedding lookup (`PirRagSystem.lookup`)."""
+    uplink_bytes: int
+    downlink_bytes: int
+    client_ms: float
+    server_ms: float
+    kappa: int                    # rows requested (multiset size)
+    groups: int                   # distinct id groups privately fetched
+    mode: str = "batch"           # "batch" (cuckoo) | "legacy" (G one-hots)
+    n_buckets: int = 0            # batch mode: bucket queries (incl dummies)
     hint_bytes: int = 0           # one-time hint downlink of the path used
 
 
@@ -90,6 +106,8 @@ class PirRagSystem:
     pack_seconds: float = 0.0     # of index_seconds: chunk-transposed packing
     hint_seconds: float = 0.0     # hint GEMM
     assignment: np.ndarray | None = None  # (N,) doc→cluster
+    batch: object | None = None           # batchpir.BatchPIR once enabled
+    keyed: object | None = None           # batchpir.KeyedLayout (keyed system)
     _qgen: torch.Generator | None = None  # client stream for keyless queries
 
     @property
@@ -163,6 +181,188 @@ class PirRagSystem:
                    hint_seconds=t_end - t_index, assignment=assign,
                    _qgen=_fresh_client_generator(device))
 
+    @classmethod
+    def build_keyed(cls, table: np.ndarray, *, group_size: int | None = None,
+                    kappa: int = 8, n_buckets: int | None = None,
+                    chunk_size: int = 256, seed: int = 0,
+                    batch_seed: int = 101, impl: str = "auto",
+                    q_switch: int | None = 1 << 16,
+                    device: str | torch.device | None = None
+                    ) -> "PirRagSystem":
+        """Offline setup for KEYED serving: a private embedding-table index.
+
+        table: (V, d) f32 rows.  There is no k-means: row i lands in group
+        ``i // group_size`` (`batchpir.KeyedLayout`, default ≈ √V), each
+        group packs into one chunk-transposed column with the row's raw f32
+        bytes as the record payload, and batch-PIR is enabled at once.
+        `lookup` then recovers rows bit-identical to ``table[ids]``.
+        ``centroids`` are the per-group row means, so the legacy `query`
+        stays well formed.  ``seed`` gives ``a_seed`` as in `build`.  Runs
+        on ``device`` (default ``cuda``; raises without a card).
+        """
+        from repro_torch import batchpir
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        table = np.ascontiguousarray(table, np.float32)
+        layout = batchpir.KeyedLayout.build(table.shape[0], table.shape[1],
+                                            group_size)
+        _, a_seed = _derive_build_streams(seed)
+        assign = np.arange(layout.n_rows, dtype=np.int64) // layout.group_size
+        texts = [layout.row_text(table[i]) for i in range(layout.n_rows)]
+        sums = np.zeros((layout.n_groups, layout.dim), np.float64)
+        np.add.at(sums, assign, table)
+        cnts = np.bincount(assign, minlength=layout.n_groups)[:, None]
+        cents = (sums / np.maximum(cnts, 1)).astype(np.float32)
+        system = cls._from_parts(texts, table, cents, assign, layout.n_groups,
+                                 a_seed=a_seed, chunk_size=chunk_size,
+                                 q_switch=q_switch, impl=impl, device=dev,
+                                 t0=t0)
+        system.keyed = layout
+        system.enable_batch(kappa=kappa, n_buckets=n_buckets, seed=batch_seed)
+        system.setup_seconds += system.batch.setup_seconds
+        return system
+
+    # -- batch-PIR (multi-probe amortization) --------------------------------
+
+    def enable_batch(self, *, kappa: int = 8, n_buckets: int | None = None,
+                     seed: int = 101):
+        """Bucketize the DB for batch-PIR; multi_probe > 1 then routes there.
+
+        The sub-DBs are gathered on the device from the served DB, and every
+        bucket hint is computed there.  Returns the `batchpir.BatchPIR`.
+        """
+        from repro_torch import batchpir
+        self.batch = batchpir.build(
+            self.server.db, self.db.used_bytes, self.cfg.params,
+            kappa=kappa, n_buckets=n_buckets, seed=seed,
+            a_seed=self.cfg.a_seed, impl=self.cfg.impl)
+        return self.batch
+
+    # -- keyed lookups (recsys serving) --------------------------------------
+
+    def _require_keyed(self):
+        if self.keyed is None or self.batch is None:
+            raise ValueError("keyed lookups need a build_keyed() system")
+        return self.keyed, self.batch
+
+    def lookup(self, ids, *, generator: torch.Generator | None = None
+               ) -> tuple[np.ndarray, LookupStats]:
+        """Privately fetch embedding rows ``ids`` → ((κ, d) f32, accounting).
+
+        ``ids`` is a multiset; rows come back in caller order, bit-identical
+        to ``table[ids]``.  The server sees B pseudorandom bucket
+        ciphertexts and streams its bucketed DB once whatever κ is.  A
+        structurally unplaceable distinct-group set falls back to the legacy
+        path: one flat-PIR one-hot per distinct group.
+        """
+        from repro_torch.batchpir import PlacementError
+        layout, bp = self._require_keyed()
+        gen = self._generator(generator)
+        t0 = time.perf_counter()
+        try:
+            qs, state = bp.client.query_rows(gen, layout, ids)
+        except PlacementError:
+            return self._lookup_legacy(ids, gen, t0)
+        sync(self.device)
+        t1 = time.perf_counter()
+        ans = bp.server.answer_batch(qs)
+        sync(self.device)
+        t2 = time.perf_counter()
+        rows = bp.client.recover_rows(ans, state)
+        t3 = time.perf_counter()
+        acc = bp.client.accounting(state.base)
+        stats = LookupStats(
+            uplink_bytes=acc.uplink_bytes, downlink_bytes=acc.downlink_bytes,
+            client_ms=1e3 * ((t1 - t0) + (t3 - t2)),
+            server_ms=1e3 * (t2 - t1), kappa=len(state.ids),
+            groups=len(state.base.placement), mode="batch",
+            n_buckets=acc.n_buckets, hint_bytes=acc.hint_bytes)
+        return rows, stats
+
+    def _lookup_legacy(self, ids, gen: torch.Generator, t0: float
+                       ) -> tuple[np.ndarray, LookupStats]:
+        """Flat-PIR fallback: one one-hot query per DISTINCT id group."""
+        layout = self.keyed
+        ids = [int(i) for i in ids]
+        groups = layout.groups_of(ids)
+        client = pir.PIRClient(self.cfg, self.hint,
+                               a_mat=self.server.a_matrix)
+        cols = np.zeros((self.cfg.m, 0), np.uint8)
+        t1 = t2 = time.perf_counter()
+        if groups:
+            qs, secrets = client.query_batch(gen, groups)
+            sync(self.device)
+            t1 = time.perf_counter()
+            ans = self.server.answer(qs)
+            sync(self.device)
+            t2 = time.perf_counter()
+            cols = client.recover_batch(ans, secrets).cpu().numpy()
+        by_group = {g: cols[:, j] for j, g in enumerate(groups)}
+        rows = [layout.decode_row(by_group[layout.group_of(i)], i)
+                for i in ids]
+        out = (np.stack(rows) if rows
+               else np.zeros((0, layout.dim), np.float32))
+        t3 = time.perf_counter()
+        g = len(groups)
+        stats = LookupStats(
+            uplink_bytes=g * self.cfg.uplink_bytes,
+            downlink_bytes=g * self.cfg.downlink_bytes,
+            client_ms=1e3 * ((t1 - t0) + (t3 - t2)),
+            server_ms=1e3 * (t2 - t1), kappa=len(ids), groups=g,
+            mode="legacy", hint_bytes=self.cfg.hint_bytes)
+        return out, stats
+
+    def lookup_batch(self, ids_batch, *,
+                     generator: torch.Generator | None = None
+                     ) -> list[np.ndarray]:
+        """Batched keyed serving: C clients' bucket queries, one bucketed
+        pass.  Returns one (κ_i, d) f32 array per client, bit-identical to
+        ``table[ids_i]``."""
+        return self.lookup_batch_async(ids_batch,
+                                       generator=generator).complete()
+
+    def lookup_batch_async(self, ids_batch, *,
+                           generator: torch.Generator | None = None
+                           ) -> InflightBatch:
+        """Plan + dispatch a keyed serving batch; decode deferred.
+
+        Per-client placement failures fall back to that client's legacy
+        lookup; everyone else stacks along the column axis of the shared
+        bucketed product.  The per-bucket hints and configs are snapshotted
+        at plan time, so `complete()` decodes against this batch's epoch
+        even if a live commit lands in between.
+        """
+        from repro_torch.batchpir import PlacementError
+        layout, bp = self._require_keyed()
+        gen = self._generator(generator)
+        per_client, fallback = [], {}
+        for i, ids in enumerate(ids_batch):
+            try:
+                per_client.append(bp.client.query_rows(gen, layout, ids))
+            except PlacementError:
+                fallback[i] = self._lookup_legacy(ids, gen,
+                                                  time.perf_counter())[0]
+                per_client.append(None)
+        live = [i for i, pc in enumerate(per_client) if pc is not None]
+        answers: list = []
+        if live:
+            stacked = torch.stack([per_client[i][0] for i in live], dim=2)
+            answers = bp.server.answer_batch(stacked)   # per bucket (m_b, C)
+        hints = list(bp.client.hints)
+        cfgs = list(bp.client.cfgs)
+
+        def complete():
+            out: list[np.ndarray | None] = [None] * len(per_client)
+            for c_idx, i in enumerate(live):
+                ans_i = [a[:, c_idx] for a in answers]
+                out[i] = bp.client.recover_rows(ans_i, per_client[i][1],
+                                                hints=hints, cfgs=cfgs)
+            for i, rows in fallback.items():
+                out[i] = rows
+            return out
+
+        return InflightBatch(_complete=complete, pending=tuple(answers))
+
     # -- online -------------------------------------------------------------
 
     def _generator(self, generator: torch.Generator | None
@@ -182,18 +382,42 @@ class PirRagSystem:
         return np.argsort(d2.cpu().numpy(), axis=1)[:, :probes]
 
     def query(self, query_emb: np.ndarray, *, top_k: int = 10,
-              multi_probe: int = 1, generator: torch.Generator | None = None
+              multi_probe: int = 1, generator: torch.Generator | None = None,
+              mode: str = "auto"
               ) -> tuple[list[tuple[int, float, bytes]], QueryStats]:
         """One fully private retrieval; returns top-k docs + accounting.
 
-        multi_probe=P privately fetches the P nearest clusters with P
-        one-hot queries in one GEMM.  LWE secrets and errors come from
-        ``generator`` (default: the system's OS-seeded client stream).
+        multi_probe=P privately fetches the P nearest clusters.  Two server
+        shapes:
+
+          legacy — P one-hot queries into ONE GEMM over the full DB: server
+                   work and uplink/downlink scale P×.
+          batch  — with `enable_batch()`: cuckoo-place the P clusters into
+                   buckets and send one (real or dummy) query per bucket;
+                   the server streams its bucketed DB once whatever P is.
+
+        mode="auto" routes multi_probe > 1 through batch-PIR when enabled,
+        falling back to legacy on a placement failure; "legacy"/"batch"
+        force a path.  LWE secrets and errors come from ``generator``
+        (default: the system's OS-seeded client stream).
         """
+        if mode not in ("auto", "legacy", "batch"):
+            raise ValueError(f"unknown query mode {mode!r}")
         gen = self._generator(generator)
         t0 = time.perf_counter()
         order = self._cluster_order(np.asarray(query_emb)[None, :],
                                     max(1, multi_probe))[0]
+        use_batch = self.batch is not None and (
+            mode == "batch" or (mode == "auto" and len(order) > 1))
+        if use_batch:
+            from repro_torch.batchpir import PlacementError
+            try:
+                return self._query_via_batch(query_emb, order, top_k, gen, t0)
+            except PlacementError:
+                if mode == "batch":
+                    raise
+        elif mode == "batch":
+            raise ValueError("enable_batch() before mode='batch' queries")
         client = pir.PIRClient(self.cfg, self.hint,
                                a_mat=self.server.a_matrix)
         qs, secrets = client.query_batch(gen, [int(c) for c in order])
@@ -221,6 +445,33 @@ class PirRagSystem:
             mode="legacy", probes=p, hint_bytes=self.cfg.hint_bytes)
         return top, stats
 
+    def _query_via_batch(self, query_emb: np.ndarray, order: np.ndarray,
+                         top_k: int, gen: torch.Generator, t0: float
+                         ) -> tuple[list, QueryStats]:
+        """Batch-PIR leg of `query`: one bucketed pass for all probes."""
+        bp = self.batch
+        qs, state = bp.client.query(gen, [int(c) for c in order])
+        sync(self.device)
+        t1 = time.perf_counter()
+        ans = bp.server.answer_batch(qs)
+        sync(self.device)
+        t2 = time.perf_counter()
+        cols = bp.client.recover(ans, state)
+        docs = []
+        for c in order:
+            docs.extend(chunking.deserialize_docs(cols[int(c)],
+                                                  self.db.emb_dim))
+        top = rerank.rerank(np.asarray(query_emb, np.float32), docs, top_k)
+        t3 = time.perf_counter()
+        acc = bp.client.accounting(state)
+        stats = QueryStats(
+            uplink_bytes=acc.uplink_bytes, downlink_bytes=acc.downlink_bytes,
+            client_ms=1e3 * ((t1 - t0) + (t3 - t2)),
+            server_ms=1e3 * (t2 - t1), cluster_index=int(order[0]),
+            mode="batch", probes=len(order), n_buckets=acc.n_buckets,
+            hint_bytes=acc.hint_bytes)
+        return top, stats
+
     def query_batch(self, query_embs: np.ndarray, *,
                     top_k: int | Sequence[int] = 10, multi_probe: int = 1,
                     generator: torch.Generator | None = None
@@ -228,6 +479,9 @@ class PirRagSystem:
         """Batched serving: B clients' encrypted queries in one GEMM.
 
         top_k may be per-request (a sequence aligned with `query_embs`).
+        multi_probe > 1 with `enable_batch()` routes every client through
+        batch-PIR: all clients' per-bucket queries stack along the column
+        axis of the SAME bucketed product, one pass per serving batch.
         """
         return self.query_batch_async(query_embs, top_k=top_k,
                                       multi_probe=multi_probe,
@@ -250,6 +504,9 @@ class PirRagSystem:
                   else [int(t) for t in top_k])
         if len(top_ks) != n_req:
             raise ValueError(f"{len(top_ks)} top_k values for {n_req} queries")
+        if multi_probe > 1 and self.batch is not None:
+            return self._query_batch_via_batchpir_async(query_embs, top_ks,
+                                                        multi_probe, gen)
         p = max(1, multi_probe)
         client = pir.PIRClient(self.cfg, self.hint,
                                a_mat=self.server.a_matrix)
@@ -272,3 +529,56 @@ class PirRagSystem:
             return out
 
         return InflightBatch(_complete=complete, pending=(cols,))
+
+    def _query_batch_via_batchpir_async(self, query_embs: np.ndarray,
+                                        top_ks: list[int], multi_probe: int,
+                                        gen: torch.Generator
+                                        ) -> InflightBatch:
+        """Multi-probe serving batch: C clients × B buckets, one bucketed
+        product.
+
+        Per-client placement failures fall back to that client's legacy
+        multi-probe query; everyone else shares the bucketed pass.  The
+        per-bucket hints and configs, which a later commit replaces in the
+        shared lists, are snapshotted at plan time so `complete()` decodes
+        against this batch's epoch.
+        """
+        from repro_torch.batchpir import PlacementError
+        bp = self.batch
+        emb_dim = self.db.emb_dim
+        orders = self._cluster_order(query_embs, multi_probe)
+        per_client, fallback = [], {}
+        for i in range(len(query_embs)):
+            try:
+                per_client.append(bp.client.query(
+                    gen, [int(c) for c in orders[i]]))
+            except PlacementError:
+                fallback[i] = self.query(query_embs[i], top_k=top_ks[i],
+                                         multi_probe=multi_probe,
+                                         generator=gen, mode="legacy")[0]
+                per_client.append(None)
+        live = [i for i, pc in enumerate(per_client) if pc is not None]
+        answers: list = []
+        if live:
+            stacked = torch.stack([per_client[i][0] for i in live], dim=2)
+            answers = bp.server.answer_batch(stacked)   # per bucket (m_b, C)
+        hints = list(bp.client.hints)
+        cfgs = list(bp.client.cfgs)
+
+        def complete():
+            out: list[list | None] = [None] * len(query_embs)
+            for c_idx, i in enumerate(live):
+                ans_i = [a[:, c_idx] for a in answers]
+                cols = bp.client.recover(ans_i, per_client[i][1],
+                                         hints=hints, cfgs=cfgs)
+                docs = []
+                for cl in orders[i]:
+                    docs.extend(chunking.deserialize_docs(cols[int(cl)],
+                                                          emb_dim))
+                out[i] = rerank.rerank(np.asarray(query_embs[i], np.float32),
+                                       docs, top_ks[i])
+            for i, top in fallback.items():
+                out[i] = top
+            return out
+
+        return InflightBatch(_complete=complete, pending=tuple(answers))

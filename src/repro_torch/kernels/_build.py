@@ -27,12 +27,12 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / ".build"
-SOURCES = ("modmatmul", "kmeans_assign", "delta_gemm")
+SOURCES = ("modmatmul", "kmeans_assign", "delta_gemm", "bucketed_modmatmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: launch count per kernel entry, read by ``ops.launch_counts``
 LAUNCHES = {"modmatmul_u8": 0, "modmatmul_u32": 0, "kmeans_assign": 0,
-            "delta_gemm": 0, "add_delta": 0}
+            "delta_gemm": 0, "add_delta": 0, "bucketed_modmatmul": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -44,6 +44,9 @@ _SIGNATURES = {
     "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _I, _I, _I, _P)},
     "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _I, _I, _I, _P),
                    "add_delta_u32": (_P, _P, _I, _P)},
+    "bucketed_modmatmul": {
+        "bucketed_modmatmul_u8": (_P, _I, _P, _P, _I, _I, _I, _P),
+        "bucketed_modmatmul_tile_rows": ()},
 }
 
 

@@ -16,9 +16,12 @@ The kernels mask ragged edges themselves, so nothing here pads.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.bucketed_modmatmul import bucketed_modmatmul_cuda
 from repro_torch.kernels.delta_gemm import add_delta_cuda, delta_gemm_cuda
 from repro_torch.kernels.kmeans_assign import kmeans_assign_cuda
 from repro_torch.kernels.modmatmul import modmatmul_cuda
@@ -83,6 +86,40 @@ def mod_u32_matmul(left: torch.Tensor, right: torch.Tensor, *,
     if left.dtype != torch.int32:
         raise TypeError(f"left must be int32-held u32, got {left.dtype}")
     return _matmul_u32(left, right, impl)
+
+
+def bucketed_modmatmul(dbs: Sequence[torch.Tensor], qs: torch.Tensor, *,
+                       impl: str = "auto") -> list[torch.Tensor]:
+    """Per-bucket exact ``(D_b @ q_b) mod 2^32``: the batch-PIR server op.
+
+    dbs: B uint8 sub-DBs (m_b, W) sharing one padded width W (heights may
+         differ: each bucket is row-truncated to its tallest member).
+    qs:  (B, W) or (B, W, C) int32-held u32: one query (or C stacked client
+         queries) per bucket.
+    Returns B int32-held u32 tensors, (m_b,) or (m_b, C).
+
+    On a card this is ONE launch of the grouped CUDA kernel over every
+    bucket's own height (the JAX package's Pallas form pads the buckets to
+    the tallest and stacks them); on the CPU, `ref.bucketed_modmatmul_ref`.
+    """
+    if qs.dtype != torch.int32:
+        raise TypeError(f"qs must be int32-held u32, got {qs.dtype}")
+    n_b = len(dbs)
+    if qs.shape[0] != n_b:
+        raise ValueError(f"{n_b} buckets but qs has leading dim {qs.shape[0]}")
+    was_vec = qs.dim() == 2
+    q3 = qs[:, :, None] if was_vec else qs
+    for d in dbs:
+        if d.dtype != torch.uint8:
+            raise TypeError(f"bucket sub-DBs must be uint8, got {d.dtype}")
+        if d.dim() != 2 or d.shape[1] != q3.shape[1]:
+            raise ValueError(f"bucket width {tuple(d.shape)} != query width "
+                             f"{q3.shape[1]}")
+    route = _route(impl, q3, *dbs)
+    with kernel_annotation(f"pirrag.bucketed_modmatmul.{route}"):
+        out = (bucketed_modmatmul_cuda(dbs, q3) if route == "cuda"
+               else ref.bucketed_modmatmul_ref(dbs, q3))
+    return [o[:, 0] for o in out] if was_vec else out
 
 
 def delta_gemm(new_cols: torch.Tensor, old_cols: torch.Tensor,

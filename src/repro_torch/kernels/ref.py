@@ -58,6 +58,13 @@ def delta_gemm_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,
     return modmatmul_ref(diff, a_j)
 
 
+def bucketed_modmatmul_ref(dbs, qs: torch.Tensor) -> list[torch.Tensor]:
+    """Per-bucket exact ``dbs[b] @ qs[b] mod 2^32``: `modmatmul_ref` on each
+    bucket.  dbs: B (m_b, W) uint8; qs: (B, W, C) int32-held u32 → B
+    (m_b, C) int32-held u32 tensors."""
+    return [modmatmul_ref(d, qs[b]) for b, d in enumerate(dbs)]
+
+
 def add_delta_ref(hint: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """``hint + delta mod 2^32`` of two int32-held u32 tensors (new tensor)."""
     return wrap_i32(as_i64(hint) + as_i64(delta))

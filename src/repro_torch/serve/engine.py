@@ -10,9 +10,11 @@ under a fake clock is byte-identical to the JAX package's loop.
 
 The per-batch LWE randomness comes from one `torch.Generator` seeded from
 ``seed`` (the JAX loop splits a threefry key per batch); decryption is
-exact, so responses do not depend on it.  The pipelined engine, shadow
-commits, the generation stage, keyed lookups and answer-fault injection
-are not ported yet.
+exact, so responses do not depend on it.  A tick serves one answer product
+per request kind: single-probe queries share the column-stacked GEMM, each
+multi_probe value shares one bucketed batch-PIR pass, and keyed lookups
+share the keyed bucketed pass.  The pipelined engine, shadow commits, the
+generation stage and answer-fault injection are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,12 +35,13 @@ from repro_torch.obs import Obs
 @dataclasses.dataclass
 class Request:
     rid: int
-    query_emb: np.ndarray
+    query_emb: np.ndarray | None   # None for keyed embedding lookups
     t_arrival: float
     epoch: int = 0                 # hint epoch the query was formed against
     retries: int = 0
     top_k: int = 5                 # per-request result size
-    multi_probe: int = 1           # clusters to fetch
+    multi_probe: int = 1           # clusters to fetch (>1: batch-PIR able)
+    lookup_ids: tuple | None = None  # keyed row ids (embedding lookup)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +187,18 @@ class PIRServeLoop:
                                     else epoch, top_k=top_k,
                                     multi_probe=multi_probe))
 
+    def submit_lookup(self, rid: int, ids, *, epoch: int | None = None):
+        """A client submits a keyed embedding lookup (row id multiset).
+
+        Lookups batch through the same deadline and admission policy as
+        queries; each tick serves all its lookups in ONE bucketed pass of
+        the keyed batch-PIR subsystem.  Needs a `build_keyed` system.
+        """
+        self.batcher.submit(Request(rid, None, self.clock(),
+                                    epoch=self.epoch if epoch is None
+                                    else epoch,
+                                    lookup_ids=tuple(int(i) for i in ids)))
+
     def submit_mutation(self, mut):
         """Queue a journal record; folded into an epoch at the next tick."""
         if self.live is None:
@@ -299,11 +314,29 @@ class PIRServeLoop:
 
     def _probe_groups(self, fresh: list[Request]
                       ) -> list[tuple[tuple[str, int], list[Request]]]:
-        """One answer product per multi_probe value, in sorted key order."""
+        """One answer product per request kind and shape: single-probe
+        queries share the column-stacked GEMM, each distinct multi_probe
+        value one bucketed batch-PIR pass, keyed lookups the keyed bucketed
+        pass.  Keys are ("lookup", 0) or ("query", multi_probe), sorted, so
+        the group order is deterministic."""
         groups: dict[tuple[str, int], list[Request]] = {}
         for r in fresh:
-            groups.setdefault(("query", r.multi_probe), []).append(r)
+            k = (("lookup", 0) if r.lookup_ids is not None
+                 else ("query", r.multi_probe))
+            groups.setdefault(k, []).append(r)
         return [(k, groups[k]) for k in sorted(groups)]
+
+    def _plan_group(self, system, kind: tuple[str, int],
+                    reqs: list[Request], gen: torch.Generator):
+        """Encode + dispatch one request group → its `InflightBatch`:
+        lookups through `lookup_batch_async` (results are (κ, d) row
+        arrays), queries through `query_batch_async` (top-k doc lists)."""
+        if kind[0] == "lookup":
+            return system.lookup_batch_async([r.lookup_ids for r in reqs],
+                                             generator=gen)
+        embs = np.stack([r.query_emb for r in reqs])
+        return system.query_batch_async(embs, top_k=[r.top_k for r in reqs],
+                                        multi_probe=kind[1], generator=gen)
 
     def _serving_system(self):
         return self.live.system if self.live is not None else self.system
@@ -347,10 +380,7 @@ class PIRServeLoop:
                 with self.obs.span("serve.plan", batch=len(reqs),
                                    kind=kind[0],
                                    multi_probe=kind[1]) as sp_plan:
-                    embs = np.stack([r.query_emb for r in reqs])
-                    infl = system.query_batch_async(
-                        embs, top_k=[r.top_k for r in reqs],
-                        multi_probe=kind[1], generator=gen)
+                    infl = self._plan_group(system, kind, reqs, gen)
                 with self.obs.span("serve.gemm", batch=len(reqs)) as sp_gemm:
                     _wait(infl.pending)
                 with self.obs.span("serve.complete",

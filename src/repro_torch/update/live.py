@@ -1,6 +1,5 @@
 """LiveIndex: streaming corpus mutations over a PirRagSystem (twin of
-``repro/update/live.py``, one device, without the keyed, batch-PIR and mesh
-branches).
+``repro/update/live.py``, on one device, without the mesh branches).
 
 Mutations accumulate in the journal; `commit()` folds the pending batch into
 one published epoch:
@@ -9,7 +8,8 @@ one published epoch:
     repack    — `chunking.rebuild_columns` re-serializes only touched columns
     delta     — `PIRServer.stage_delta` returns ΔH = ΔD[:,J]·A[J,:] through
                 the delta-hint kernel, and `ops.add_delta` folds it into the
-                hint in ΔH's own buffer
+                hint in ΔH's own buffer; with batch-PIR on, `routing` queues
+                the same patch for every bucket that holds a touched column
     publish   — the DB columns are swapped, and the EpochLog gains a
                 HintPatch; clients `HintCache.sync()` to patch their cached
                 hint instead of re-downloading it
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -76,6 +77,20 @@ class StagedEpoch:
     repack_s: float = 0.0
 
 
+def _weak_hook(method: Callable) -> Callable:
+    """``method`` called through a weak reference to its object; calling it
+    after the object is gone raises."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args, **kwargs):
+        bound = ref()
+        if bound is None:
+            raise RuntimeError("the LiveIndex behind this epoch log is gone")
+        return bound(*args, **kwargs)
+
+    return hook
+
+
 class LiveIndex:
     """A PirRagSystem that accepts insert/delete/replace without downtime."""
 
@@ -98,7 +113,8 @@ class LiveIndex:
         # _stage_full supplies the then-current id set itself
         self._rebuild_kwargs.pop("doc_ids", None)
         # a full rebuild runs where the wrapped system runs, with its knobs
-        self._rebuild_kwargs.setdefault("n_clusters", system.db.n)
+        if system.keyed is None:
+            self._rebuild_kwargs.setdefault("n_clusters", system.db.n)
         self._rebuild_kwargs.setdefault("device", system.device)
         self._rebuild_kwargs.setdefault("impl", system.cfg.impl)
         self._rebuild_kwargs.setdefault("chunk_size", system.db.chunk_size)
@@ -114,8 +130,11 @@ class LiveIndex:
         # stays intact and the serving epoch never moves.
         self.faults = None
         # A client that detects a corrupt patch chain recovers by fetching
-        # the CURRENT full hint (one deterministic full re-sync).
-        self.epochs.full_fetch = self._full_patch
+        # the CURRENT full hint (one deterministic full re-sync).  Bound
+        # weakly: the log is this index's own attribute, so a bound method
+        # would make a reference cycle that keeps a dropped index's card
+        # tensors alive until the cycle collector runs.
+        self.epochs.full_fetch = _weak_hook(self._full_patch)
 
         ids = (np.arange(len(texts)) if doc_ids is None
                else np.asarray(doc_ids))
@@ -149,6 +168,28 @@ class LiveIndex:
                    compact_every=compact_every,
                    rebuild_kwargs=dict(n_clusters=n_clusters, **build_kwargs))
 
+    @classmethod
+    def build_keyed(cls, table, *, max_pad_fraction: float = 0.95,
+                    compact_every: int | None = None,
+                    **build_kwargs) -> "LiveIndex":
+        """Offline-build a KEYED system (embedding table) as a live index.
+
+        table: (V, d) f32; extra kwargs (``device=`` among them) forward to
+        `PirRagSystem.build_keyed` and are replayed on full rebuilds.  Row i
+        is doc i in its id-derived group, so `replace_row` streams fresh
+        rows through the delta-epoch path (a keyed record has a fixed width,
+        so a replace never overflows a column).  Keyed mutations are
+        REPLACE-only: the client's stride arithmetic needs the dense id
+        space 0..V-1.
+        """
+        table = np.ascontiguousarray(table, np.float32)
+        system = pipeline.PirRagSystem.build_keyed(table, **build_kwargs)
+        layout = system.keyed
+        texts = [layout.row_text(table[i]) for i in range(layout.n_rows)]
+        return cls(system, texts, table, max_pad_fraction=max_pad_fraction,
+                   compact_every=compact_every,
+                   rebuild_kwargs=dict(build_kwargs))
+
     def set_obs(self, obs: Obs) -> None:
         """Adopt `obs` (a serve loop's handle) for commit/compaction events."""
         self.obs = obs
@@ -179,6 +220,17 @@ class LiveIndex:
         """Journal a replace (emb: (d,) f32); visible at the next commit."""
         self.journal.append(journal_lib.replace(doc_id, text, emb))
 
+    def replace_row(self, row_id: int, row: np.ndarray):
+        """Journal a KEYED row replace; the record payload is the row itself
+        (`KeyedLayout.row_text`), so it stays in its id-derived group and
+        the next commit ships it as an ordinary delta epoch."""
+        layout = self.system.keyed
+        if layout is None:
+            raise ValueError("replace_row needs a keyed (build_keyed) index")
+        row = np.asarray(row, np.float32)
+        self.journal.append(journal_lib.replace(
+            row_id, layout.row_text(row), row))
+
     # -- commit --------------------------------------------------------------
 
     def commit(self, *, donate: bool = False) -> HintPatch | None:
@@ -207,12 +259,24 @@ class LiveIndex:
                 f"({len(muts)} pending mutations, batch retryable)")
         t0 = time.perf_counter()
         db = self.system.db
+        keyed = self.system.keyed
+        if keyed is not None:
+            # The client decodes by id arithmetic over a dense 0..V-1 space,
+            # so inserts and deletes would punch holes in it; replaced rows
+            # stay in their id-derived group, not the nearest centroid's.
+            for mut in muts:
+                if mut.kind != journal_lib.REPLACE:
+                    raise ValueError(
+                        f"keyed index supports replace only, got {mut.kind} "
+                        f"for doc {mut.doc_id}")
+        assign_fn = (None if keyed is None
+                     else (lambda i, e: keyed.group_of(i)))
         with self.obs.span("commit.stage", mutations=len(muts)) as sp:
             plan = planner.plan_updates(
                 muts, docs=self._docs, cluster_of=self._cluster_of,
                 centroids=self.system.centroids, m=db.m,
                 used_bytes=self._used, n_clusters=db.n, emb_dim=db.emb_dim,
-                max_pad_fraction=self.max_pad_fraction)
+                max_pad_fraction=self.max_pad_fraction, assign_fn=assign_fn)
             plan_s = time.perf_counter() - t0
             sp.set(kind="full" if plan.full_rebuild else "delta",
                    touched=len(plan.touched))
@@ -287,8 +351,9 @@ class LiveIndex:
         # ΔH is transient, so the add writes into ITS buffer; the old hint
         # survives for in-flight decodes.
         new_hint = ops.add_delta(system.hint, delta_h, impl=system.cfg.impl)
-        # Batch-PIR replicas would take the same delta (not ported: None).
-        staged_batch = routing.stage_batch_hints(system, cols, new_cols,
+        # Batch-PIR replicas (if enabled) take the same exact delta, routed
+        # to each touched cluster's owning buckets.
+        staged_batch = routing.stage_batch_hints(system, cols, new_t,
                                                  used, donate=donate)
 
         def apply():
@@ -323,8 +388,22 @@ class LiveIndex:
         ids = sorted(plan.new_docs)
         texts = [plan.new_docs[i][0] for i in ids]
         embs = np.stack([plan.new_docs[i][1] for i in ids])
-        new_system = pipeline.PirRagSystem.build(
-            texts, embs, doc_ids=ids, **self._rebuild_kwargs)
+        if self.system.keyed is not None:
+            # Keyed rebuild: the id space is dense (replace-only), so the
+            # doc set IS the table; same layout and bucket knobs.
+            if ids != list(range(len(ids))):
+                raise ValueError("keyed id space is not dense")
+            lay, bp = self.system.keyed, self.system.batch
+            kw = {k: v for k, v in self._rebuild_kwargs.items()
+                  if k not in ("group_size", "kappa", "n_buckets",
+                               "batch_seed")}
+            new_system = pipeline.PirRagSystem.build_keyed(
+                embs, group_size=lay.group_size, kappa=bp.kappa,
+                n_buckets=bp.partition.n_buckets, batch_seed=bp.seed, **kw)
+        else:
+            new_system = pipeline.PirRagSystem.build(
+                texts, embs, doc_ids=ids, **self._rebuild_kwargs)
+            routing.rebuild_batch(self.system, new_system)
         # Rebuild re-clusters, so the plan's incremental cluster map is stale.
         plan.new_cluster_of.clear()
         plan.new_cluster_of.update(
@@ -367,3 +446,13 @@ class LiveIndex:
         """Epoch-checked batched query ((B, d) f32; kwargs to the system)."""
         self.check_epoch(epoch)
         return self.system.query_batch(query_embs, **kwargs)
+
+    def lookup(self, ids, *, epoch: int, **kwargs):
+        """Epoch-checked keyed row lookup (kwargs to `PirRagSystem.lookup`)."""
+        self.check_epoch(epoch)
+        return self.system.lookup(ids, **kwargs)
+
+    def lookup_batch(self, ids_batch, *, epoch: int, **kwargs):
+        """Epoch-checked batched keyed lookup (kwargs to the system)."""
+        self.check_epoch(epoch)
+        return self.system.lookup_batch(ids_batch, **kwargs)

@@ -195,3 +195,60 @@ def test_live_commit_on_the_card(cuda):
                               live.system.db.matrix)
         cache.sync(live.epochs)
         assert torch.equal(cache.hint, live.system.hint)
+
+
+@pytest.mark.parametrize("heights,w,c", [
+    ((1,), 1, 1), ((64, 1, 96), 32, 1), ((128, 256), 64, 3),
+    ((300, 1, 129, 257), 7, 16), ((5, 0, 1000), 256, 17),
+    ((4099, 2000, 130), 256, 64), ((1, 2, 3), 33, 65),
+])
+def test_bucketed_modmatmul_bitwise(cuda, heights, w, c):
+    """Ragged heights (a bucket of 1 row, an empty one), W off the tile and
+    off a multiple of 4, C = 1 and C > 16: one launch, bitwise."""
+    rng = np.random.default_rng(sum(heights) + w + c)
+    dbs = [_u8(rng, (m, w), cuda) for m in heights]
+    qs = _u32(rng, (len(heights), w, c), cuda)
+    ops.reset_launch_counts()
+    got = ops.bucketed_modmatmul(dbs, qs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bucketed_modmatmul"] == 1
+    for g, want in zip(got, ref.bucketed_modmatmul_ref(dbs, qs)):
+        assert torch.equal(g, want)
+
+
+def test_bucketed_modmatmul_wraparound_and_vector(cuda):
+    dbs = [torch.full((m, 300), 255, dtype=torch.uint8, device=cuda)
+           for m in (129, 3)]
+    qs = torch.full((2, 300, 5), -1, dtype=torch.int32, device=cuda)
+    for g, want in zip(ops.bucketed_modmatmul(dbs, qs, impl="cuda"),
+                       ref.bucketed_modmatmul_ref(dbs, qs)):
+        assert torch.equal(g, want)
+    got = ops.bucketed_modmatmul(dbs, qs[:, :, 0], impl="cuda")
+    assert [tuple(g.shape) for g in got] == [(129,), (3,)]
+    assert torch.equal(got[1], ref.modmatmul_ref(dbs[1], qs[1, :, :1])[:, 0])
+
+
+def test_dropped_live_index_frees_card_memory_without_gc(cuda):
+    """A LiveIndex holds no reference cycle: deleting it returns its card
+    tensors at once, with the cycle collector off."""
+    import gc
+
+    from repro_torch.data import corpus as corpus_lib
+    from repro_torch.update import LiveIndex
+    corp = corpus_lib.make_corpus(1, 400, emb_dim=16, n_topics=6)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        live = LiveIndex.build(corp.texts, corp.embeddings, n_clusters=6,
+                               kmeans_iters=5, device=cuda)
+        live.replace(0, b"rev", corp.embeddings[0])
+        live.commit()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        assert held > base
+        del live
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        gc.enable()

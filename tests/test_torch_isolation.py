@@ -109,7 +109,7 @@ def test_chip_smoke_rehearsal_runs_the_live_index_and_serve_phases():
     table = json.loads(lines[-1])["kernels"]
     assert [k["name"] for k in table] == ["modmatmul_u8", "modmatmul_u32",
                                           "kmeans_assign", "delta_gemm",
-                                          "add_delta"]
+                                          "add_delta", "bucketed_modmatmul"]
     for k in table:
         assert {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "replaces", "source"} <= set(k)
@@ -127,6 +127,51 @@ def test_live_entry_points_raise_without_a_card():
             "for fn in (lambda: LiveIndex.build(t, e, n_clusters=2),\n"
             "           lambda: convert.live_from_state(t, e, centroids=e[:2],"
             " assignment=np.zeros(4, int), n_clusters=2, a_seed=1)):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as err:\n"
+            "        assert 'device' in str(err), err\n"
+            "    else:\n"
+            "        raise SystemExit('ran without a card')\n"
+            "print('RAISED')")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED" in out.stdout
+
+
+def test_chip_smoke_rehearsal_runs_the_batch_pir_and_keyed_phases():
+    code = ("import runpy\n"
+            f"sys.argv = [{str(ROOT / 'chip_smoke.py')!r}, '--rehearse']\n"
+            f"runpy.run_path(sys.argv[0], run_name='__main__')")
+    out = _run(code)
+    assert out.returncode == 3, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    for phase in ('"P"', '"P commit"', '"P overflow"', '"launches P"', '"K"',
+                  '"launches K"'):
+        assert any(f'"phase": {phase}' in ln for ln in lines), phase
+    p = next(json.loads(ln) for ln in lines if '"phase": "P"' in ln)
+    assert p["served"] + p["failed"] == p["offered"]
+    for ln in lines:
+        if '"phase": "P commit"' in ln or '"phase": "P overflow"' in ln:
+            c = json.loads(ln)
+            assert c["bucket_hints_equal_setup"] and c["sub_dbs_equal_host"]
+    assert any(json.loads(ln).get("rebuilt_buckets") for ln in lines
+               if '"phase": "P overflow"' in ln)
+    k = next(json.loads(ln) for ln in lines if '"phase": "K"' in ln)
+    assert k["rows_equal_table"] and k["replaced_rows_equal"]
+    row = json.loads(lines[-1])["kernels"][-1]
+    assert row["name"] == "bucketed_modmatmul" and row["route"] == "cuda"
+    assert row["library_ms"] is None and row["library_note"]
+
+
+def test_keyed_entry_points_raise_without_a_card():
+    code = ("import numpy as np, torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "from repro_torch.core import pipeline\n"
+            "from repro_torch.update import LiveIndex\n"
+            "t = np.zeros((16, 4), np.float32)\n"
+            "for fn in (lambda: pipeline.PirRagSystem.build_keyed(t),\n"
+            "           lambda: LiveIndex.build_keyed(t)):\n"
             "    try:\n"
             "        fn()\n"
             "    except RuntimeError as err:\n"

@@ -139,5 +139,5 @@ def test_cpu_path_does_not_count_launches():
     ops.modmatmul(torch.from_numpy(db), u32_to_torch(q, CPU))
     assert set(ops.launch_counts()) == {"modmatmul_u8", "modmatmul_u32",
                                         "kmeans_assign", "delta_gemm",
-                                        "add_delta"}
+                                        "add_delta", "bucketed_modmatmul"}
     assert all(v == 0 for v in ops.launch_counts().values())
