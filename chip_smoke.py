@@ -13,8 +13,10 @@ path at full width and checks what comes out.  The phases, in order:
            (modmatmul, delta_gemm, bucketed_modmatmul) and the u32 add
            (add_delta) bitwise on ragged shapes (for the grouped product: a
            bucket of one row, unequal heights, C = 1 and C > 1, W off the
-           tile), on wraparound operands and on row slices of each
-           main-path shape; k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
+           tile), on wraparound operands, on u8 limb sums past 2^31 and
+           on row slices of each main-path shape, with the producer the u8
+           limb kernel read D by (TMA required at the main-path widths);
+           k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
            and assignments equal wherever the plain top-2 gap exceeds
            1e-5 * (|x|^2 + |c|^2)
   B        `PirRagSystem.build` at SIFT1M scale (1,000,000 docs, d = 128,
@@ -51,7 +53,9 @@ path at full width and checks what comes out.  The phases, in order:
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
   timing   each kernel, its plain version and its bound at a main-path
            shape; the hint and the phase-B-width delta checked bitwise
-           against the plain versions
+           against the plain versions; a yardstick line times
+           torch._int_mm at the u8 limb kernel's stacked s8 shapes (not the
+           same function, never called by the port)
 
 Launch counts are set to 0 just before each of phases B, U, S, P, K and C
 and read just after it; every kernel of a path must have launched in it.
@@ -75,6 +79,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -89,7 +94,7 @@ from repro_torch.batchpir.server import bucket_rows  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, modmatmul, ops, ref  # noqa: E402
 from repro_torch.serve import PIRServeLoop  # noqa: E402
 from repro_torch.update import (HintCache, LiveIndex, journal,  # noqa: E402
                                 planner)
@@ -104,17 +109,21 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             slice_rows=4096, plain_rows=131_072, rebuild_docs=20_000,
             rebuild_clusters=64, s_requests=64, s_batch=16, p_kappa=4,
             p_requests=32, p_batch=16, k_rows=1_000_000, k_dim=64,
-            k_kappa=8, k_requests=32, k_batch=16)
+            k_kappa=8, k_requests=32, k_batch=16, yard_rows=262_144)
 TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             c_rows=1000, c_cols=256, c_batch=8, slice_rows=64,
             plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
             s_requests=8, s_batch=4, p_kappa=4, p_requests=8, p_batch=4,
-            k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4)
+            k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4,
+            yard_rows=64)
 #: the partition seed phase P's buckets are drawn from (enable_batch's default)
 P_SEED = 101
 #: shares of the clusters phase U's two delta epochs touch (update_bench's
 #: sweep: 5%, then 25%)
 U_SHARES = (0.05, 0.25)
+#: DB widths of the main path (K's and P's buckets, B's clusters, C): the u8
+#: limb kernel must read D there by TMA, not by its predicated byte loads
+MAIN_WIDTHS = (128, 256, 1024, 4096)
 
 SOURCES = {
     "modmatmul_u8": ("src/repro_torch/kernels/csrc/modmatmul.cu",
@@ -266,6 +275,16 @@ def check_mod(card, left, right, what):
                              f"{u32_max_abs_err(got, want)}")
 
 
+def u8_producer(card, left, m, n, b):
+    """Which producer the u8 limb kernel fills its ring with for ``left``
+    (``"plain"`` in a rehearsal); TMA is asserted at the main-path widths."""
+    how = "plain" if card.rehearse else modmatmul.u8_producer(left)
+    if not card.rehearse and n in MAIN_WIDTHS and how != "tma":
+        raise AssertionError(f"modmatmul_u8 {m}x{n}x{b}: a main-path width "
+                             f"read by the {how} producer, not TMA")
+    return dict(shape=f"{m}x{n}x{b}", producer=how)
+
+
 def check_delta(card, new, old, a_j, what):
     """delta_gemm against its plain version, bitwise."""
     got = ops.delta_gemm(new, old, a_j, impl=card.impl)
@@ -319,12 +338,30 @@ def kernel_phase(card, cfg):
     gen = torch.Generator(device=card.dev).manual_seed(11)
     dev, rows = card.dev, cfg["slice_rows"]
     n_b, n_c, bc = cfg["clusters"], cfg["c_cols"], cfg["c_batch"]
+    p_width = 1 << max(0, (n_b // cfg["p_kappa"] - 1).bit_length())
+    # the last seven: b off the limb kernel's column tiles, m = 1 at the
+    # hint's width, the bucket widths of P and K
     u8_cases = [(1, 1, 1), (100, 300, 1), (257, 513, 3), (31, 1025, 129),
                 (rows, n_b, cfg["queries"]), (rows, n_b, 1024),
-                (rows, n_c, bc), (rows, n_c, 1024)]
+                (rows, n_c, bc), (rows, n_c, 1024),
+                (rows, n_b, 63), (rows, n_b, 65), (rows, n_b, 257),
+                (1, n_c, 1024), (rows, p_width, 1024), (rows, 128, 1024),
+                (rows, 128, cfg["k_batch"])]
+    producers = []
     for m, n, b in u8_cases:
-        check_mod(card, _u8(gen, (m, n), dev), _u32(gen, (n, b), dev),
-                  f"u8 {m}x{n}x{b}")
+        left = _u8(gen, (m, n), dev)
+        check_mod(card, left, _u32(gen, (n, b), dev), f"u8 {m}x{n}x{b}")
+        producers.append(u8_producer(card, left, m, n, b))
+    # limb sums past 2^31 (255 * 255 * n): the contraction's chunks carry
+    # them, through the predicated producer (n % 16 != 0) and through TMA
+    for n in (33_100, 33_280):
+        left = torch.full((64, n), 255, dtype=torch.uint8, device=dev)
+        check_mod(card, left,
+                  torch.full((n, 8), -1, dtype=torch.int32, device=dev),
+                  f"u8 limb sums past 2^31, 64x{n}x8")
+        producers.append(u8_producer(card, left, 64, n, 8))
+    emit(phase="kernels producers", modmatmul_u8=producers,
+         main_widths=list(MAIN_WIDTHS))
     u32_cases = [(1, 1, 1), (257, 513, 3), (n_b, 1024, cfg["queries"]),
                  (n_c, 1024, bc), (rows, 1024, cfg["queries"]),
                  (rows, 1024, bc)]
@@ -363,7 +400,9 @@ def kernel_phase(card, cfg):
                                device=dev),
                     torch.full((70, 45), -1, dtype=torch.int32, device=dev),
                     f"wraparound {new_val}-{old_val}")
-    add_cases = [(1,), (3,), (1023,), (rows, 1024)]
+    # the last three leave 1, 2 and 3 words past the 16-byte vectors
+    add_cases = [(1,), (3,), (1023,), (rows, 1024), (rows * 1024 + 1,),
+                 (rows * 1024 + 2,), (rows * 1024 + 3,)]
     for shape in add_cases:
         check_add(card, _u32(gen, shape, dev), _u32(gen, shape, dev),
                   f"{shape}")
@@ -375,7 +414,6 @@ def kernel_phase(card, cfg):
               "wraparound")
     # the grouped product: (heights, W, C); the last two are row slices of
     # phase P's buckets (3 kappa of them, W = 3n / (3 kappa) to a power of 2)
-    p_width = 1 << max(0, (n_b // cfg["p_kappa"] - 1).bit_length())
     slices = tuple(max(1, rows - 37 * b) for b in range(3 * cfg["p_kappa"]))
     bucketed_cases = [((1,), 1, 1), ((64, 1, 96), 32, 1),
                       ((300, 1, 129, 257), 7, 16), ((5, 0, 1000), 256, 17),
@@ -392,7 +430,7 @@ def kernel_phase(card, cfg):
                    torch.full((2, 300, 5), -1, dtype=torch.int32, device=dev),
                    "wraparound")
     card.sync()
-    emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 1,
+    emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 3,
          modmatmul_u32_cases=len(u32_cases) + 1, kmeans_assign_cases=6,
          delta_gemm_cases=len(delta_cases) + 2,
          add_delta_cases=len(add_cases) + 2,
@@ -1136,6 +1174,38 @@ def _bound(bytes_, ops_, rate):
                                        else "operations")
 
 
+def yardstick(card, cfg, db, a_mat, qs):
+    """`torch._int_mm` at the stacked s8 shapes of the hint and of C's
+    answer, (rows, n) x (n, 4 b_pad), beside the limb kernel on the same row
+    slice of D.  Not the same function (signed bytes, no limb
+    recombination, no mod-2^32 sum) and never called by the port: it only
+    says what rate the card's own int8 GEMM reaches at these shapes."""
+    rows = min(cfg["yard_rows"], db.shape[0])
+    d = db[:rows]
+    n = d.shape[1]
+    lines = []
+    for op, right in (("hint", a_mat), ("answer", qs)):
+        # (n, 4 b_pad) s8 in column-major order, the kernel's own planes
+        b_s8 = ref.limb_planes(right)[:, :n].view(torch.int8).t()
+        stacked = b_s8.shape[1]
+        work = 2 * rows * n * stacked
+        line = dict(phase="yardstick", op=op,
+                    shape=f"{rows}x{n}x{stacked} s8",
+                    note="torch._int_mm: not the same function; never "
+                         "called by the port")
+        try:
+            lib_ms = card.time_ms(lambda: torch._int_mm(d.view(torch.int8),
+                                                        b_s8), reps=5)
+            line.update(int_mm_ms=lib_ms, int_mm_tops=work / lib_ms / 1e9)
+        except RuntimeError as err:
+            line.update(int_mm_ms=None, int_mm_error=str(err)[:200])
+        ms = card.time_ms(lambda: ops.modmatmul(d, right, impl=card.impl),
+                          reps=5)
+        line.update(modmatmul_u8_ms=ms, modmatmul_u8_tops=work / ms / 1e9)
+        lines.append(line)
+    return lines
+
+
 def timing_phase(card, cfg, state, launches, u_epochs, line_p):
     rows = cfg["plain_rows"]
     db, hint, qs, secrets = (state["db"], state["hint"], state["qs"],
@@ -1181,6 +1251,8 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
     if hint_err or err:
         raise AssertionError(f"modmatmul_u8 at full size: max err "
                              f"{max(hint_err, err)}")
+    for line in yardstick(card, cfg, db, a_mat, qs):
+        emit(**line)
 
     # the client's hint strip: H (m, k) · S (k, 64), u32 × u32
     got = ops.mod_u32_matmul(hint, secrets, impl=card.impl)
@@ -1290,6 +1362,33 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
 
 # --------------------------------------------------------------------------
 
+def sass_line(source: str) -> dict:
+    """The matrix instructions of each kernel in the built library of
+    ``csrc/<source>.cu``, from ``cuobjdump -sass``: warpgroup MMA (``GMMA``),
+    warp MMA (``IMMA``, ``HMMA``) and 32-bit integer multiply-add (``IMAD``,
+    which also counts the moves and index arithmetic it is used for)."""
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_build._lib_path(source))],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].strip()
+            # the kernel's name and its width template argument, if any
+            hit = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?", fn)
+            if hit:
+                fn = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                                     else "")
+            counts[fn] = {"GMMA": 0, "IMMA": 0, "HMMA": 0, "IMAD": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}" in ln or f"{op}." in ln:
+                    counts[fn][op] += 1
+                    break
+    return dict(phase="sass", source=f"csrc/{source}.cu", kernels=counts)
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1320,8 +1419,11 @@ def main(argv=None) -> int:
         emit(phase="device", name=torch.cuda.get_device_name(0),
              count=torch.cuda.device_count(), torch=torch.__version__,
              cuda=torch.version.cuda)
-        emit(phase="build", seconds=_build.build_all(),
-             sources=list(_build.SOURCES))
+        t_build = time.perf_counter()
+        nvcc_seconds = _build.build_all()
+        emit(phase="build", seconds=time.perf_counter() - t_build,
+             sources=list(_build.SOURCES), nvcc_seconds=nvcc_seconds)
+        emit(**sass_line("modmatmul"))
     kernel_phase(card, cfg)
 
     paths = {}

@@ -39,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 #: C signature of every exported function: (argtypes,), restype is int
 _SIGNATURES = {
-    "modmatmul": {"modmatmul_u8": (_P, _P, _P, _I, _I, _I, _P),
+    "modmatmul": {"modmatmul_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+                  "modmatmul_u8_tma": (_P, _I),
                   "modmatmul_u32": (_P, _P, _P, _I, _I, _I, _P)},
     "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _I, _I, _I, _P)},
     "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -71,31 +72,44 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> float:
-    """Compile every missing library in parallel; return the seconds taken."""
+def build_all() -> dict[str, float]:
+    """Compile every missing library in parallel; return the seconds each
+    source's nvcc took, counted from the common start (empty if nothing
+    was missing)."""
     t0 = time.perf_counter()
+    seconds = {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs = {}
     for name in SOURCES:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        with open(log, "wb") as fh:
+            procs[name] = (out, tmp, log, subprocess.Popen(
+                cmd, stdout=fh, stderr=subprocess.STDOUT))
+    pending = set(procs)
+    while pending:
+        for name in sorted(pending):
+            if procs[name][3].poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+                pending.discard(name)
+        if pending:
+            time.sleep(0.05)
     errors = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
+    for name, (out, tmp, log, proc) in procs.items():
+        text = log.read_text(errors="replace")
+        log.unlink()
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exit {proc.returncode}\n"
-                          f"{log.decode(errors='replace')}")
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
             continue
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -20,9 +20,12 @@
 // where the row width allows.  It masks ragged m, J and k itself: callers
 // pass unpadded operands.
 //
-// add_delta_u32 computes D = H + D elementwise on u32 words (16-byte vectors
-// where both buffers allow), writing into dH's buffer: the hint is never
-// written because in-flight decodes still read it.  No int64 temporaries.
+// add_delta_u32 computes D = H + D elementwise on u32 words, writing into
+// dH's buffer: the hint is never written because in-flight decodes still
+// read it.  No int64 temporaries.  It is bound by bytes (two words read,
+// one written); where both bases are 16-byte aligned each thread keeps four
+// 16-byte loads of each operand in flight with streaming cache hints, and
+// the grid covers the array in one pass; otherwise one word at a time.
 //
 // Layout: NEW, OLD (m, J) u8 row-major; A (J, k) and C (m, k) u32 row-major,
 // held by the caller as int32 tensors with the same bits.  64-bit indexing.
@@ -126,30 +129,57 @@ delta_gemm_kernel(const uint8_t* __restrict__ NEW,
 }
 
 constexpr int ADD_THREADS = 256;
+constexpr int ADD_UNROLL = 4;      // 16-byte words of each operand in flight
 
+// D = H + D on 16-byte vectors: each thread loads ADD_UNROLL vectors of H
+// and of D before it adds and stores, and the grid covers the array (one
+// pass, no grid stride).  Block 0 adds the 0-3 words past the last vector.
+__global__ void __launch_bounds__(ADD_THREADS)
+add_u32_vec_kernel(const uint32_t* __restrict__ H, uint32_t* __restrict__ D,
+                   int64_t n) {
+  const int64_t n4 = n / 4;
+  const uint4* h4 = reinterpret_cast<const uint4*>(H);
+  uint4* d4 = reinterpret_cast<uint4*>(D);
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ADD_THREADS * ADD_UNROLL
+                     + threadIdx.x;
+  uint4 h[ADD_UNROLL];
+  uint4 d[ADD_UNROLL];
+#pragma unroll
+  for (int u = 0; u < ADD_UNROLL; ++u) {
+    const int64_t i = i0 + u * ADD_THREADS;
+    if (i < n4) {
+      h[u] = __ldcs(h4 + i);                       // streamed: read once
+      d[u] = __ldcs(d4 + i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < ADD_UNROLL; ++u) {
+    const int64_t i = i0 + u * ADD_THREADS;
+    if (i < n4) {
+      uint4 v = d[u];
+      v.x += h[u].x;                               // each wraps mod 2^32
+      v.y += h[u].y;
+      v.z += h[u].z;
+      v.w += h[u].w;
+      __stcs(d4 + i, v);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) {
+    D[4 * n4 + threadIdx.x] += H[4 * n4 + threadIdx.x];
+  }
+}
+
+// D = H + D one word at a time: a base off the 16-byte alignment
 __global__ void __launch_bounds__(ADD_THREADS)
 add_u32_kernel(const uint32_t* __restrict__ H, uint32_t* __restrict__ D,
-               int64_t n, bool vec) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * ADD_THREADS;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * ADD_THREADS +
-                    threadIdx.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t n4 = n / 4;
-    const uint4* h4 = reinterpret_cast<const uint4*>(H);
-    uint4* d4 = reinterpret_cast<uint4*>(D);
-    for (int64_t i = t; i < n4; i += stride) {
-      const uint4 h = h4[i];
-      uint4 d = d4[i];
-      d.x += h.x;                                  // each wraps mod 2^32
-      d.y += h.y;
-      d.z += h.z;
-      d.w += h.w;
-      d4[i] = d;
-    }
-    done = n4 * 4;
+               int64_t n) {
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * ADD_THREADS * ADD_UNROLL
+                     + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < ADD_UNROLL; ++u) {
+    const int64_t i = i0 + u * ADD_THREADS;
+    if (i < n) D[i] += H[i];
   }
-  for (int64_t i = done + t; i < n; i += stride) D[i] += H[i];
 }
 
 }  // namespace
@@ -168,12 +198,17 @@ extern "C" int delta_gemm_u8(const void* NEW, const void* OLD, const void* A,
 extern "C" int add_delta_u32(const void* H, void* D, int64_t n, void* stream) {
   const bool vec = (reinterpret_cast<uintptr_t>(H) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(D) % 16 == 0);
-  const int64_t items = vec ? (n + 3) / 4 : n;
-  int64_t blocks = (items + ADD_THREADS - 1) / ADD_THREADS;
-  if (blocks > 132 * 16) blocks = 132 * 16;        // grid-stride beyond this
-  if (blocks < 1) blocks = 1;
-  add_u32_kernel<<<static_cast<unsigned>(blocks), ADD_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(H), static_cast<uint32_t*>(D), n, vec);
+  const int64_t items = vec ? n / 4 : n;
+  int64_t blocks = (items + ADD_THREADS * ADD_UNROLL - 1) /
+                   (ADD_THREADS * ADD_UNROLL);
+  if (blocks < 1) blocks = 1;                      // the tail of n < 4 words
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    add_u32_vec_kernel<<<static_cast<unsigned>(blocks), ADD_THREADS, 0, st>>>(
+        static_cast<const uint32_t*>(H), static_cast<uint32_t*>(D), n);
+  } else {
+    add_u32_kernel<<<static_cast<unsigned>(blocks), ADD_THREADS, 0, st>>>(
+        static_cast<const uint32_t*>(H), static_cast<uint32_t*>(D), n);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,68 @@ def modmatmul_ref(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return wrap_i32(lo + (mid << 16))
 
 
+#: contraction chunk of the limb kernel: a u8 x u8 limb sum over it stays
+#: below 2^31 (255 * 255 * 32768 < 2^31)
+LIMB_CHUNK = 32768
+
+
+def limb_plan(b: int) -> tuple[int, int, int]:
+    """(N, bno, b_pad) of `modmatmul_u8` for b query columns: N stacked
+    columns per wgmma tile (32, 64, 128 or 256), bno = N / 4 output columns
+    per tile, and b rounded up to whole tiles.  The CUDA wrapper passes N
+    to the kernel, so the choice is made here only; bno ≥ 8 keeps the four
+    limbs of an output in one thread's accumulator registers."""
+    n_stacked = 32 if b <= 8 else 64 if b <= 16 else 128 if b <= 32 else 256
+    bno = n_stacked // 4
+    return n_stacked, bno, -(-b // bno) * bno
+
+
+def limb_planes(right: torch.Tensor) -> torch.Tensor:
+    """R's four u8 limb planes, stacked and transposed as `modmatmul_u8`'s
+    prep kernel writes them: (4 b_pad, n16) uint8 with n16 = 16 ceil(n/16).
+
+    Row ``t·4·bno + l·bno + c`` holds byte l of column ``t·bno + c`` of R
+    (zero past b and past n), so each tile of bno output columns is four
+    limb blocks of bno stacked columns.  right: (n, b) int32-held u32.
+    """
+    n, b = right.shape
+    _, bno, b_pad = limb_plan(b)
+    n16 = -(-n // 16) * 16
+    padded = torch.zeros((n16, b_pad), dtype=torch.int64, device=right.device)
+    padded[:n, :b] = as_i64(right)
+    limbs = torch.stack([(padded >> (8 * l)) & 0xFF for l in range(4)])
+    # (l, k, t·bno + c) -> (t, l, c, k)
+    planes = limbs.reshape(4, n16, b_pad // bno, bno).permute(2, 0, 3, 1)
+    return planes.reshape(4 * b_pad, n16).to(torch.uint8).contiguous()
+
+
+def modmatmul_limbs_ref(db_u8: torch.Tensor, right: torch.Tensor
+                        ) -> torch.Tensor:
+    """``(db_u8 @ right) mod 2^32`` the way `modmatmul_u8` computes it.
+
+    The u8 DB times `limb_planes` of R, as u8 x u8 sums in int64 over
+    contraction chunks of `LIMB_CHUNK` (each chunk's limb sums are asserted
+    below 2^31, the s32 accumulator's range), then ``Σ_l sum_l << 8l`` and
+    the chunks added under the mask.  db_u8: (m, n) uint8; right: (n, b)
+    int32-held u32 → (m, b) int32-held u32.
+    """
+    m, n = db_u8.shape
+    b = right.shape[1]
+    _, bno, b_pad = limb_plan(b)
+    planes = limb_planes(right)
+    out = torch.zeros((m, b_pad), dtype=torch.int64, device=db_u8.device)
+    for k0 in range(0, n, LIMB_CHUNK):
+        k1 = min(n, k0 + LIMB_CHUNK)
+        sums = db_u8[:, k0:k1].to(torch.int64) @ planes[:, k0:k1].to(
+            torch.int64).T
+        if sums.numel() and int(sums.max()) >= 1 << 31:
+            raise AssertionError("a limb sum left the s32 range")
+        sums = sums.reshape(m, b_pad // bno, 4, bno)
+        part = sum(sums[:, :, l, :] << (8 * l) for l in range(4))
+        out = (out + part.reshape(m, b_pad)) & MASK
+    return wrap_i32(out[:, :b])
+
+
 def delta_gemm_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,
                    a_j: torch.Tensor) -> torch.Tensor:
     """Exact ``ΔH = (new − old) @ a_j mod 2^32`` as int32-held u32.

@@ -252,3 +252,67 @@ def test_dropped_live_index_frees_card_memory_without_gc(cuda):
         assert torch.cuda.memory_allocated() == base
     finally:
         gc.enable()
+
+
+# the u8 limb kernel: widths on the main path take the TMA producer
+_TMA_WIDTHS = (128, 256, 1024, 4096)
+
+
+@pytest.mark.parametrize("m,n,b", [
+    (1, 1, 1), (129, 300, 3), (1000, 513, 63), (257, 1024, 16),
+    (1000, 4096, 64), (300, 1024, 65), (129, 128, 257), (1, 256, 1024),
+    (4099, 1100, 9), (64, 4096, 33), (200, 2064, 8),
+])
+def test_modmatmul_u8_limb_kernel_bitwise(cuda, m, n, b):
+    """Ragged n (the predicated producer), main-path n (TMA), every stacked
+    width N = 32, 64, 128, 256 and b off the tile: one launch, bitwise."""
+    from repro_torch.kernels import modmatmul
+    rng = np.random.default_rng(m + 5 * n + b)
+    db = _u8(rng, (m, n), cuda)
+    q = _u32(rng, (n, b), cuda)
+    ops.reset_launch_counts()
+    got, _ = modmatmul.limb_product(db, q)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modmatmul_u8"] == 1
+    want = ("tma" if n % 16 == 0 else "predicated")
+    assert modmatmul.u8_producer(db) == want
+    if n in _TMA_WIDTHS:
+        assert want == "tma"
+    assert torch.equal(got, ref.modmatmul_ref(db, q))
+
+
+@pytest.mark.parametrize("n", [33_100, 33_280])
+def test_modmatmul_u8_limb_sums_past_two_to_the_31(cuda, n):
+    """All-255 D and all-0xFFFFFFFF R: each limb sum over n is 255·255·n >
+    2^31, so the kernel's contraction chunks must carry it (both producers)."""
+    db = torch.full((64, n), 255, dtype=torch.uint8, device=cuda)
+    q = torch.full((n, 8), -1, dtype=torch.int32, device=cuda)
+    got = ops.modmatmul(db, q, impl="cuda")
+    assert torch.equal(got, ref.modmatmul_ref(db, q))
+
+
+@pytest.mark.parametrize("n,b", [(1, 1), (300, 3), (513, 63), (1024, 16),
+                                 (4096, 65), (128, 1024)])
+def test_modmatmul_u8_prep_planes_match_ref_limb_planes(cuda, n, b):
+    """The prep kernel's stacked, transposed limb planes equal
+    `ref.limb_planes`, padding rows and columns included."""
+    from repro_torch.kernels import modmatmul
+    rng = np.random.default_rng(n + b)
+    db = _u8(rng, (3, n), cuda)
+    q = _u32(rng, (n, b), cuda)
+    _, planes = modmatmul.limb_product(db, q)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.limb_planes(q))
+
+
+@pytest.mark.parametrize("n", [(1 << 20) + 1, (1 << 20) + 2, (1 << 20) + 3])
+def test_add_delta_vector_tail(cuda, n):
+    """4k+1, 4k+2 and 4k+3 words: the vector pass leaves 1-3 tail words."""
+    rng = np.random.default_rng(n)
+    hint, delta = _u32(rng, (n,), cuda), _u32(rng, (n,), cuda)
+    delta[-1] = -1
+    hint[-1] = -1                                   # the last word wraps
+    want = ref.add_delta_ref(hint, delta)
+    got = ops.add_delta(hint, delta, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
