@@ -16,6 +16,10 @@ path at full width and checks what comes out.  The phases, in order:
            tile), on wraparound operands, on u8 limb sums past 2^31 and
            on row slices of each main-path shape, with the producer the u8
            limb kernel read D by (TMA required at the main-path widths);
+           the u32 products on the same limb tile at b = 1 at P's and K's
+           bucket-hint heights, b off the column tiles, 4k past one
+           contraction chunk, a view off 16-byte alignment (predicated
+           producer required) and wraparound;
            k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
            and assignments equal wherever the plain top-2 gap exceeds
            1e-5 * (|x|^2 + |c|^2)
@@ -52,16 +56,21 @@ path at full width and checks what comes out.  The phases, in order:
            q_switch = 2^16): `PIRServer.setup`, `answer` on 64 encrypted
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
   timing   each kernel, its plain version and its bound at a main-path
-           shape; the hint and the phase-B-width delta checked bitwise
-           against the plain versions; a yardstick line times
-           torch._int_mm at the u8 limb kernel's stacked s8 shapes (not the
-           same function, never called by the port)
+           shape; the hint, decode's one-column H_b·s at P's tallest bucket
+           and the phase-B-width delta checked bitwise against the plain
+           versions; k-means at U's rebuild shape; yardstick lines (not the
+           same functions, never called by the port) time torch._int_mm at
+           the u8 limb kernel's stacked s8 shapes and cuBLAS fp32 x @ c.T
+           (TF32 off) at the Lloyd block, and C's H·S is timed beside C's
+           answer, the same byte shape on the same kernel
 
 Launch counts are set to 0 just before each of phases B, U, S, P, K and C
 and read just after it; every kernel of a path must have launched in it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
-the device's busy share.  Each output line is one JSON object,
+the device's busy share (in P's traced tick, also the device ms of the
+u32 products).  The ``sass`` lines must show GMMA in every width of the
+limb tile, no IMAD GEMM left, and kmeans_assign on FFMA with no HMMA.  Each output line is one JSON object,
 except the nvidia-smi line.  The second-to-last line is the kernel table
 (``{"kernels": [...]}``), the last ``{"ok": true, "device": {...}}``.  Any
 mismatch raises, and the exit code is then not 0.  Without a CUDA device the
@@ -109,13 +118,17 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             slice_rows=4096, plain_rows=131_072, rebuild_docs=20_000,
             rebuild_clusters=64, s_requests=64, s_batch=16, p_kappa=4,
             p_requests=32, p_batch=16, k_rows=1_000_000, k_dim=64,
-            k_kappa=8, k_requests=32, k_batch=16, yard_rows=262_144)
+            k_kappa=8, k_requests=32, k_batch=16, yard_rows=262_144,
+            p_hint_rows=902_656, k_hint_rows=336_128)
+#: p_hint_rows, k_hint_rows: the tallest bucket hint of phases P and K at
+#: these widths (902,656 and 336,128 rows), for the kernel phase's
+#: one-column u32 cases, which run before those phases
 TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             c_rows=1000, c_cols=256, c_batch=8, slice_rows=64,
             plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
             s_requests=8, s_batch=4, p_kappa=4, p_requests=8, p_batch=4,
             k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4,
-            yard_rows=64)
+            yard_rows=64, p_hint_rows=300, k_hint_rows=100)
 #: the partition seed phase P's buckets are drawn from (enable_batch's default)
 P_SEED = 101
 #: shares of the clusters phase U's two delta epochs touch (update_bench's
@@ -124,6 +137,9 @@ U_SHARES = (0.05, 0.25)
 #: DB widths of the main path (K's and P's buckets, B's clusters, C): the u8
 #: limb kernel must read D there by TMA, not by its predicated byte loads
 MAIN_WIDTHS = (128, 256, 1024, 4096)
+#: the LWE dimension k: every A·S and H·S of the main path is a u32 left
+#: operand of k words a row, which the limb kernel must read by TMA
+LWE_K = 1024
 
 SOURCES = {
     "modmatmul_u8": ("src/repro_torch/kernels/csrc/modmatmul.cu",
@@ -264,24 +280,29 @@ def u32_max_abs_err(got, want, rows: int = 1 << 18) -> int:
 
 
 def check_mod(card, left, right, what):
-    """The kernel against its plain version, bitwise."""
+    """The kernel against its plain version (over row blocks, so bucket-
+    hint heights fit), bitwise."""
     if left.dtype == torch.uint8:
         got = ops.modmatmul(left, right, impl=card.impl)
     else:
         got = ops.mod_u32_matmul(left, right, impl=card.impl)
-    want = ref.modmatmul_ref(left, right)
+    want = plain_modmatmul(left, right, 1 << 17)
     if not torch.equal(got, want):
         raise AssertionError(f"modmatmul {what}: kernel != plain, max err "
                              f"{u32_max_abs_err(got, want)}")
 
 
-def u8_producer(card, left, m, n, b):
-    """Which producer the u8 limb kernel fills its ring with for ``left``
-    (``"plain"`` in a rehearsal); TMA is asserted at the main-path widths."""
+def u8_producer(card, left, m, n, b, aligned=True):
+    """Which producer the limb kernel fills its ring with for ``left``
+    (``"plain"`` in a rehearsal); TMA is asserted at the main-path widths
+    (u8 D: n bytes; u32 L: k = LWE_K words) unless the case is a view off
+    16-byte alignment on purpose."""
     how = "plain" if card.rehearse else modmatmul.u8_producer(left)
-    if not card.rehearse and n in MAIN_WIDTHS and how != "tma":
-        raise AssertionError(f"modmatmul_u8 {m}x{n}x{b}: a main-path width "
-                             f"read by the {how} producer, not TMA")
+    main = (n in MAIN_WIDTHS if left.dtype == torch.uint8 else n == LWE_K)
+    name = "modmatmul_u8" if left.dtype == torch.uint8 else "modmatmul_u32"
+    if not card.rehearse and main and aligned and how != "tma":
+        raise AssertionError(f"{name} {m}x{n}x{b}: a main-path width read "
+                             f"by the {how} producer, not TMA")
     return dict(shape=f"{m}x{n}x{b}", producer=how)
 
 
@@ -360,19 +381,41 @@ def kernel_phase(card, cfg):
                   torch.full((n, 8), -1, dtype=torch.int32, device=dev),
                   f"u8 limb sums past 2^31, 64x{n}x8")
         producers.append(u8_producer(card, left, 64, n, 8))
-    emit(phase="kernels producers", modmatmul_u8=producers,
-         main_widths=list(MAIN_WIDTHS))
+    # the u32 product reads L as bytes (4 a word) against R's shift planes:
+    # b = 1 at P's and K's bucket-hint heights (decode's H_b·s), b off the
+    # column tiles, 4k = 32,772 bytes past one contraction chunk
     u32_cases = [(1, 1, 1), (257, 513, 3), (n_b, 1024, cfg["queries"]),
                  (n_c, 1024, bc), (rows, 1024, cfg["queries"]),
-                 (rows, 1024, bc)]
+                 (rows, 1024, bc), (cfg["p_hint_rows"], 1024, 1),
+                 (cfg["k_hint_rows"], 1024, 1), (rows, 1024, 9),
+                 (rows, 1024, 63), (rows, 1024, 65), (rows, 1024, 257),
+                 (64, 8193, 3)]
+    u32_producers = []
     for m, n, b in u32_cases:
-        check_mod(card, _u32(gen, (m, n), dev), _u32(gen, (n, b), dev),
-                  f"u32 {m}x{n}x{b}")
+        left = _u32(gen, (m, n), dev)
+        check_mod(card, left, _u32(gen, (n, b), dev), f"u32 {m}x{n}x{b}")
+        u32_producers.append(u8_producer(card, left, m, n, b))
+        del left
+    # a contiguous view 4 bytes into its buffer: off 16-byte alignment
+    view = _u32(gen, (rows * 1024 + 1,), dev)[1:].view(rows, 1024)
+    check_mod(card, view, _u32(gen, (1024, 16), dev),
+              f"u32 row-slice view off 16 bytes {rows}x1024x16")
+    u32_producers.append(dict(u8_producer(card, view, rows, 1024, 16,
+                                          aligned=False), view="+4 bytes"))
+    if not card.rehearse and u32_producers[-1]["producer"] != "predicated":
+        raise AssertionError("modmatmul_u32: a base off 16 bytes went by TMA")
+    emit(phase="kernels producers", modmatmul_u8=producers,
+         modmatmul_u32=u32_producers, main_widths=list(MAIN_WIDTHS),
+         lwe_k=LWE_K)
     ones = torch.full((300, 1100), 255, dtype=torch.uint8, device=dev)
     allf = torch.full((1100, 70), -1, dtype=torch.int32, device=dev)
     check_mod(card, ones, allf, "u8 wraparound")
     check_mod(card, torch.full((300, 1100), -1, dtype=torch.int32,
                                device=dev), allf, "u32 wraparound")
+    check_mod(card, torch.full((64, 8193), -1, dtype=torch.int32,
+                               device=dev),
+              torch.full((8193, 3), -1, dtype=torch.int32, device=dev),
+              "u32 wraparound past a contraction chunk")
 
     def f32(shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -431,7 +474,7 @@ def kernel_phase(card, cfg):
                    "wraparound")
     card.sync()
     emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 3,
-         modmatmul_u32_cases=len(u32_cases) + 1, kmeans_assign_cases=6,
+         modmatmul_u32_cases=len(u32_cases) + 3, kmeans_assign_cases=6,
          delta_gemm_cases=len(delta_cases) + 2,
          add_delta_cases=len(add_cases) + 2,
          bucketed_modmatmul_cases=len(bucketed_cases) + 1,
@@ -495,12 +538,12 @@ def phase_b(card, cfg):
 
 
 def traced_ms(card, fn):
-    """(wall ms, device kernel ms, top kernels) of one ``fn()`` under
-    torch.profiler; the device numbers are None off the card."""
+    """(wall ms, device kernel ms, top kernels, every kernel) of one ``fn()``
+    under torch.profiler; the device numbers are None off the card."""
     if card.dev.type != "cuda":
         t0 = time.perf_counter()
         fn()
-        return 1e3 * (time.perf_counter() - t0), None, []
+        return 1e3 * (time.perf_counter() - t0), None, [], []
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -515,7 +558,27 @@ def traced_ms(card, fn):
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    return wall, sum(ms for _, ms in rows), rows[:6]
+    return wall, sum(ms for _, ms in rows), rows[:6], rows
+
+
+#: the kernels a `modmatmul_u32` call runs (its prep and the limb tile,
+#: which `modmatmul_u8` shares)
+U32_KERNELS = re.compile(r"shift_planes_kernel|limb_gemm_kernel")
+
+
+def u32_share(card, fn):
+    """`traced_ms` of ``fn()`` with the device ms of its `modmatmul_u32`
+    kernels and the launches it made.  The limb tile is shared with
+    `modmatmul_u8`, so the share is given only where ``fn`` launched no
+    `modmatmul_u8`."""
+    before = ops.launch_counts()
+    wall, busy, top, rows = traced_ms(card, fn)
+    made = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    u32_ms = None
+    if busy is not None and made["modmatmul_u8"] == 0:
+        u32_ms = sum(ms for key, ms in rows if U32_KERNELS.search(key))
+    return wall, busy, top, dict(traced_launches=made,
+                                 traced_modmatmul_u32_ms=u32_ms)
 
 
 def phase_b_breakdown(card, cfg, system, corp, queries):
@@ -531,7 +594,7 @@ def phase_b_breakdown(card, cfg, system, corp, queries):
         raise AssertionError("phase B: k-means did not repeat exactly")
     del km, x
     gen = torch.Generator(device=card.dev).manual_seed(4)
-    wall, busy, top = traced_ms(
+    wall, busy, top, _ = traced_ms(
         card, lambda: system.query_batch(queries, top_k=10, generator=gen))
     return dict(
         phase="B breakdown", kmeans_repeats_exactly=True,
@@ -777,7 +840,7 @@ def phase_s(card, cfg, live, corp):
                     top_k=10)
         anchor_of[offered] = anchors[j % len(anchors)]
         offered += 1
-    wall, busy, top = traced_ms(card, lambda: loop.tick(force=True))
+    wall, busy, top, _ = traced_ms(card, lambda: loop.tick(force=True))
     loop.drain()
 
     served = [r for r in loop.responses if not r.failed]
@@ -970,7 +1033,7 @@ def phase_p(card, cfg, live, corp):
     for i in range(cfg["p_batch"]):
         d = anchors[i % len(anchors)]
         submit(d, live._docs[d][1])
-    wall, busy, top = traced_ms(card, lambda: loop.tick(force=True))
+    wall, busy, top, share = u32_share(card, lambda: loop.tick(force=True))
     loop.drain()
 
     served = [r for r in loop.responses if not r.failed]
@@ -999,7 +1062,7 @@ def phase_p(card, cfg, live, corp):
         decode_ms_median=med_ms("decode_s"), traced_tick_wall_ms=wall,
         device_kernel_ms=busy,
         device_idle_share=None if busy is None else 1.0 - busy / wall,
-        top_kernels_ms=top, max_memory_allocated=(
+        top_kernels_ms=top, **share, max_memory_allocated=(
             torch.cuda.max_memory_allocated()
             if card.dev.type == "cuda" else None)))
     return lines
@@ -1116,6 +1179,8 @@ def phase_k(card, cfg):
         bucket_hint_bytes=bp.server.hint_bytes, build_seconds=build_s,
         offered=len(asks), served=len(served), failed=loop.failed_requests,
         stale_retries=loop.stale_retries, batches=len(timings),
+        encode_ms_median=1e3 * float(np.median([t.encode_s
+                                                for t in timings])),
         gemm_ms_median=1e3 * float(np.median([t.gemm_s for t in timings])),
         decode_ms_median=1e3 * float(np.median([t.decode_s
                                                 for t in timings])),
@@ -1206,6 +1271,44 @@ def yardstick(card, cfg, db, a_mat, qs):
     return lines
 
 
+def hs_beside_answer(card, db, qs, hint, secrets):
+    """C's H·S (u32 H read as 4k bytes a row) beside C's answer (u8 D of n
+    = 4k bytes a row) at b = 64: one byte shape, one kernel, timed in turns
+    (answer, H·S, H·S, answer)."""
+    times = {"answer": [], "H·S": []}
+    for op in ("answer", "H·S", "H·S", "answer"):
+        fn = ((lambda: ops.modmatmul(db, qs, impl=card.impl))
+              if op == "answer" else
+              (lambda: ops.mod_u32_matmul(hint, secrets, impl=card.impl)))
+        times[op].append(card.time_ms(fn, reps=5))
+    ans, hs = (sum(v) / 2 for v in times.values())
+    return dict(phase="yardstick", op="H·S beside the answer",
+                answer_shape=f"{db.shape[0]}x{db.shape[1]}x{qs.shape[1]} u8",
+                hs_shape=f"{hint.shape[0]}x{hint.shape[1]}x{secrets.shape[1]}"
+                         " u32", answer_ms=ans, hs_ms=hs, hs_over_answer=hs / ans)
+
+
+def cublas_beside_assign(card, x, c, assign_ms):
+    """cuBLAS fp32 ``x @ c.T`` with TF32 off at the Lloyd block: the
+    distance matrix's product only (no norms, no argmin, (N, K) written to
+    memory).  Not the same function and never called by the port: it says
+    what fp32 rate the card's own GEMM reaches at this shape."""
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_ms = card.time_ms(lambda: x @ c.T, reps=20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    flops = 2 * x.shape[0] * c.shape[0] * x.shape[1]
+    return dict(phase="yardstick", op="Lloyd block x @ c.T",
+                shape=f"{x.shape[0]}x{c.shape[0]}x{x.shape[1]} fp32, TF32 off",
+                cublas_ms=lib_ms, cublas_tflops=flops / lib_ms / 1e9,
+                kmeans_assign_ms=assign_ms,
+                kmeans_assign_tflops=flops / assign_ms / 1e9,
+                note="x @ c.T: not the same function; never called by the "
+                     "port")
+
+
 def timing_phase(card, cfg, state, launches, u_epochs, line_p):
     rows = cfg["plain_rows"]
     db, hint, qs, secrets = (state["db"], state["hint"], state["qs"],
@@ -1268,6 +1371,27 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
           4 * (m * k + k * b + m * b), 2 * m * k * b * 10, INT8_OPS_PER_S,
           "10 int8 limb products (i+j<4) of two u32 words on the int8 "
           "tensor cores")
+    emit(**hs_beside_answer(card, db, qs, hint, secrets))
+
+    # decode's one-column H_b·s at phase P's tallest bucket
+    mb = max(line_p["bucket_rows"])
+    gen = torch.Generator(device=card.dev).manual_seed(18)
+    hint_b = _u32(gen, (mb, k), card.dev)
+    s_b = _u32(gen, (k, 1), card.dev)
+    got = ops.mod_u32_matmul(hint_b, s_b, impl=card.impl)
+    plain, col_plain_ms = card.once_ms(lambda: plain_modmatmul(hint_b, s_b,
+                                                               rows))
+    err = u32_max_abs_err(got, plain)
+    del plain, got
+    if err:
+        raise AssertionError(f"modmatmul_u32 one-column H_b·s: max err {err}")
+    col_ms = card.time_ms(lambda: ops.mod_u32_matmul(hint_b, s_b,
+                                                     impl=card.impl), reps=10)
+    cb, cby = _bound(4 * (mb * k + k + mb), 2 * mb * k * 10, INT8_OPS_PER_S)
+    emit(phase="timing", op="one-column H_b·s", kernel="modmatmul_u32",
+         shape=f"{mb}x{k}x1", ms=col_ms, plain_ms=col_plain_ms,
+         max_abs_err=err, bound_ms=cb, bound_by=cby)
+    del hint_b, s_b
 
     # one Lloyd block of phase B: (docs/8, d) points × (clusters, d)
     gen = torch.Generator(device=card.dev).manual_seed(5)
@@ -1283,6 +1407,22 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
     entry("kmeans_assign", f"Lloyd block {pts}x{kk}x{d}", ms, plain_ms, err,
           4 * (pts * d + kk * d) + 8 * pts, 2 * pts * kk * d,
           FP32_FLOPS_PER_S, "fp32 FMA on the CUDA cores (no TF32)")
+    emit(**cublas_beside_assign(card, x, c, ms))
+    del x, c
+    # one Lloyd block of phase U's rebuild (rebuild_docs/8 points)
+    pts_u = -(-cfg["rebuild_docs"] // 8)
+    gen_u = torch.Generator(device=card.dev).manual_seed(19)
+    x = torch.randn((pts_u, cfg["emb_dim"]), generator=gen_u, device=card.dev)
+    c = torch.randn((cfg["rebuild_clusters"], cfg["emb_dim"]),
+                    generator=gen_u, device=card.dev)
+    err = check_assign(card, x, c, "rebuild shape")
+    ms_u = card.time_ms(lambda: ops.kmeans_assign(x, c, impl=card.impl),
+                        reps=20)
+    ub, uby = _bound(4 * (pts_u * d + c.shape[0] * d) + 8 * pts_u,
+                     2 * pts_u * c.shape[0] * d, FP32_FLOPS_PER_S)
+    emit(phase="timing", op="U rebuild Lloyd block", kernel="kmeans_assign",
+         shape=f"{pts_u}x{c.shape[0]}x{d}", ms=ms_u, max_abs_err=err,
+         bound_ms=ub, bound_by=uby)
     del x, c
 
     # the delta-hint kernel at phase B's width and each phase-U epoch's J
@@ -1365,8 +1505,9 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
 def sass_line(source: str) -> dict:
     """The matrix instructions of each kernel in the built library of
     ``csrc/<source>.cu``, from ``cuobjdump -sass``: warpgroup MMA (``GMMA``),
-    warp MMA (``IMMA``, ``HMMA``) and 32-bit integer multiply-add (``IMAD``,
-    which also counts the moves and index arithmetic it is used for)."""
+    warp MMA (``IMMA``, ``HMMA``), fp32 FMA (``FFMA``) and 32-bit integer
+    multiply-add (``IMAD``, which also counts the moves and index arithmetic
+    it is used for)."""
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(_build._lib_path(source))],
                          capture_output=True, text=True, check=True,
@@ -1375,18 +1516,37 @@ def sass_line(source: str) -> dict:
     for ln in out.splitlines():
         if "Function : " in ln:
             fn = ln.split("Function : ", 1)[1].strip()
-            # the kernel's name and its width template argument, if any
-            hit = re.search(r"\d+([A-Za-z_]+_kernel)(?:ILi(\d+)E)?", fn)
+            # the kernel's name and its template argument (a width or a
+            # bool), if any
+            hit = re.search(r"\d+([A-Za-z_]+_kernel)(?:IL[ib](\d+)E)?", fn)
             if hit:
                 fn = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
                                      else "")
-            counts[fn] = {"GMMA": 0, "IMMA": 0, "HMMA": 0, "IMAD": 0}
+            counts[fn] = {"GMMA": 0, "IMMA": 0, "HMMA": 0, "FFMA": 0,
+                          "IMAD": 0}
         elif fn is not None:
             for op in counts[fn]:
                 if f" {op}" in ln or f"{op}." in ln:
                     counts[fn][op] += 1
                     break
     return dict(phase="sass", source=f"csrc/{source}.cu", kernels=counts)
+
+
+def check_sass(mod, km) -> None:
+    """The u32 product runs the shift-plane prep and the limb tile, whose
+    every width holds GMMA, and no IMAD GEMM is left; kmeans_assign runs on
+    FFMA with no tensor-core MMA (no TF32)."""
+    kernels = mod["kernels"]
+    tiles = [k for k in kernels if k.startswith("limb_gemm_kernel<")]
+    if ("shift_planes_kernel" not in kernels or len(tiles) != 4
+            or any(kernels[k]["GMMA"] == 0 for k in tiles)
+            or "modmatmul_kernel" in kernels):
+        raise AssertionError(f"modmatmul.cu sass: {kernels}")
+    assign = [v for k, v in km["kernels"].items()
+              if k.startswith("kmeans_assign_kernel")]
+    if not assign or any(v["FFMA"] == 0 or v["HMMA"] or v["GMMA"]
+                         for v in assign):
+        raise AssertionError(f"kmeans_assign.cu sass: {km['kernels']}")
 
 
 def device_line() -> str:
@@ -1423,7 +1583,10 @@ def main(argv=None) -> int:
         nvcc_seconds = _build.build_all()
         emit(phase="build", seconds=time.perf_counter() - t_build,
              sources=list(_build.SOURCES), nvcc_seconds=nvcc_seconds)
-        emit(**sass_line("modmatmul"))
+        sass = [sass_line("modmatmul"), sass_line("kmeans_assign")]
+        for line in sass:
+            emit(**line)
+        check_sass(*sass)
     kernel_phase(card, cfg)
 
     paths = {}

@@ -41,8 +41,10 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "modmatmul": {"modmatmul_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
                   "modmatmul_u8_tma": (_P, _I),
-                  "modmatmul_u32": (_P, _P, _P, _I, _I, _I, _P)},
-    "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _I, _I, _I, _P)},
+                  "modmatmul_u32": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _P),
+                      "kmeans_assign_scratch_floats": (_I, _I)},
     "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _I, _I, _I, _P),
                    "add_delta_u32": (_P, _P, _I, _P)},
     "bucketed_modmatmul": {

@@ -1,4 +1,5 @@
-// Exact C = (L @ R) mod 2^32 for an L of uint8 or uint32 and an R of uint32.
+// Exact C = (L @ R) mod 2^32 for an L of uint8 or uint32 and an R of uint32,
+// both on Hopper's int8 tensor cores.
 //
 // modmatmul_u8 replaces the TPU kernel repro/kernels/modmatmul.py (_kernel
 // :53, modmatmul_pallas :95): the server's answer D.Q and the offline hint
@@ -44,8 +45,20 @@
 // answer (b <= 64) by reading D once.
 //
 // modmatmul_u32 (A.S and H.S, which the JAX package leaves to XLA: lwe.py
-// :141, :147, :179) keeps a shared-memory tiled GEMM on the CUDA cores'
-// 32-bit IMAD, whose wraparound is the modulus.
+// :141, :147, :179) runs on the same limb tile.  An int32-held u32 matrix
+// H (m, k) is, read as bytes, a little-endian u8 matrix H8 (m, 4k) whose
+// byte 4 kk + i is limb i of word kk.  For each shift j = 0..3 the prep
+// kernel (shift_planes_kernel) stacks a u8 plane P_j (4k, b) with
+// P_j[4 kk + i][c] = byte (j - i) of R[kk][c] where i <= j and 0 where
+// i > j, so
+//
+//     H.R mod 2^32 = sum_j (H8.P_j) << 8j   (mod 2^32),
+//
+// the terms with i + l >= 4 vanishing mod 2^32.  That is the recombination
+// the limb tile already does, so H8 goes through limb_gemm_kernel<N> as D
+// does: the read of H sets the time (C's H.S is, byte for byte, the shape
+// of C's answer).  A row stride 4k that is not a multiple of 16 bytes, or a
+// base off 16 bytes (a row-slice view), takes the predicated producer.
 //
 // Layout: L (m, n) row-major, R (n, b) row-major, C (m, b) row-major; all
 // u32 data is the int32 tensor with the same bits.  64-bit indexing: the
@@ -58,101 +71,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// modmatmul_u32: IMAD tiles
-// ---------------------------------------------------------------------------
-constexpr int BM = 128;                          // output rows per block
-constexpr int BN = 64;                           // output columns per block
-constexpr int BK = 32;                           // contraction per stage
-constexpr int TM = 8;                            // rows per thread
-constexpr int TN = 4;                            // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-
-template <typename TL>
-__global__ void __launch_bounds__(THREADS)
-modmatmul_kernel(const TL* __restrict__ L, const uint32_t* __restrict__ R,
-                 uint32_t* __restrict__ C, int64_t m, int64_t n, int64_t b) {
-  // +1 column of padding: the transposed store below hits distinct banks
-  __shared__ uint32_t As[BK][BM + 1];
-  __shared__ uint32_t Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * BN;
-
-  uint32_t acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0u;
-
-  for (int64_t k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BK;
-      const int kk = idx % BK;
-      const int64_t gr = row0 + r;
-      const int64_t gk = k0 + kk;
-      uint32_t v = 0u;
-      if (gr < m && gk < n) v = static_cast<uint32_t>(L[gr * n + gk]);
-      As[kk][r] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int kk = idx / BN;
-      const int c = idx % BN;
-      const int64_t gk = k0 + kk;
-      const int64_t gc = col0 + c;
-      uint32_t v = 0u;
-      if (gk < n && gc < b) v = R[gk * b + gc];
-      Bs[kk][c] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      uint32_t a[TM];
-      uint32_t w[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * w[j];  // wraps mod 2^32
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gr = row0 + ty * TM + i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gc = col0 + tx * TN + j;
-      if (gc < b) C[gr * b + gc] = acc[i][j];
-    }
-  }
-}
-
-template <typename TL>
-int launch(const void* L, const void* R, void* C, int64_t m, int64_t n,
-           int64_t b, void* stream) {
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>((b + BN - 1) / BN));
-  modmatmul_kernel<TL><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TL*>(L), static_cast<const uint32_t*>(R),
-      static_cast<uint32_t*>(C), m, n, b);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// modmatmul_u8: u8 limbs on wgmma
+// the limb tile: u8 x u8 on wgmma (modmatmul_u8 and modmatmul_u32)
 // ---------------------------------------------------------------------------
 
 constexpr int LBM = 128;            // rows of D per tile: two warpgroups of 64
@@ -546,6 +465,41 @@ limb_planes_kernel(const uint32_t* __restrict__ R, uint8_t* __restrict__ S,
   }
 }
 
+// The shift planes of R (k, b) against a u32 left operand read as bytes:
+// S[(c / bno) 4 bno + j bno + c % bno][4 kk + i] = byte (j - i) of R[kk][c]
+// where i <= j, else 0; zero where kk >= k or c >= b.  The four bytes of
+// (j, c, kk) are the low j + 1 bytes of R[kk][c] in reverse order, i.e.
+// bswap(R[kk][c]) >> 8 (3 - j): one u32 store each.
+__global__ void __launch_bounds__(256)
+shift_planes_kernel(const uint32_t* __restrict__ R, uint8_t* __restrict__ S,
+                    int64_t k, int64_t b, int64_t n16, int64_t b_pad,
+                    int bno) {
+  __shared__ uint32_t T[PT][PT + 1];
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * PT;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * PT;
+  for (int i = threadIdx.x; i < PT * PT; i += 256) {
+    const int kk = i / PT;
+    const int cc = i % PT;
+    const int64_t w = k0 + kk;
+    const int64_t c = c0 + cc;
+    T[kk][cc] = (w < k && c < b) ? R[w * b + c] : 0u;
+  }
+  __syncthreads();
+  const int64_t words = n16 / 4;
+  for (int i = threadIdx.x; i < 4 * PT * PT; i += 256) {
+    const int kk = i % PT;                           // consecutive words
+    const int rs = i / PT;
+    const int j = rs / PT;
+    const int cc = rs % PT;
+    const int64_t c = c0 + cc;
+    const int64_t w = k0 + kk;
+    if (c >= b_pad || w >= words) continue;
+    const uint32_t v = __byte_perm(T[kk][cc], 0u, 0x0123) >> (8 * (3 - j));
+    const int64_t srow = (c / bno) * 4 * bno + j * bno + c % bno;
+    *reinterpret_cast<uint32_t*>(S + srow * n16 + 4 * w) = v;
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -597,17 +551,27 @@ bool d_by_tma(const void* D, int64_t n) {
   return n % 16 == 0 && reinterpret_cast<uintptr_t>(D) % 16 == 0;
 }
 
+// R's planes into S: the limb planes against a u8 D of n bytes a row, or
+// (shifts) the shift planes against a u32 L of n / 4 words a row
 template <int N>
 int launch_limbs(const void* D, const void* R, void* S, void* C, int64_t m,
-                 int64_t n, int64_t b, cudaStream_t stream) {
+                 int64_t n, int64_t b, bool shifts, cudaStream_t stream) {
   using G = Cfg<N>;
   const int64_t b_pad = (b + G::BNO - 1) / G::BNO * G::BNO;
   const int64_t n16 = (n + 15) / 16 * 16;
-  const dim3 pgrid(static_cast<unsigned>((n16 + PT - 1) / PT),
-                   static_cast<unsigned>((b_pad + PT - 1) / PT));
-  limb_planes_kernel<<<pgrid, 256, 0, stream>>>(
-      static_cast<const uint32_t*>(R), static_cast<uint8_t*>(S), n, b, n16,
-      b_pad, G::BNO);
+  if (shifts) {
+    const dim3 pgrid(static_cast<unsigned>((n16 / 4 + PT - 1) / PT),
+                     static_cast<unsigned>((b_pad + PT - 1) / PT));
+    shift_planes_kernel<<<pgrid, 256, 0, stream>>>(
+        static_cast<const uint32_t*>(R), static_cast<uint8_t*>(S), n / 4, b,
+        n16, b_pad, G::BNO);
+  } else {
+    const dim3 pgrid(static_cast<unsigned>((n16 + PT - 1) / PT),
+                     static_cast<unsigned>((b_pad + PT - 1) / PT));
+    limb_planes_kernel<<<pgrid, 256, 0, stream>>>(
+        static_cast<const uint32_t*>(R), static_cast<uint8_t*>(S), n, b, n16,
+        b_pad, G::BNO);
+  }
   const cudaError_t prep = cudaGetLastError();
   if (prep != cudaSuccess) return static_cast<int>(prep);
 
@@ -634,6 +598,25 @@ int launch_limbs(const void* D, const void* R, void* S, void* C, int64_t m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the entries' common part: an empty product, then the width dispatch
+int limb_entry(const void* D, const void* R, void* S, void* C, int64_t m,
+               int64_t n, int64_t b, int64_t n_stacked, bool shifts,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == 0 || b == 0) return 0;
+  if (n == 0) {
+    cudaMemsetAsync(C, 0, static_cast<size_t>(m * b) * 4, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (n_stacked) {
+    case 32: return launch_limbs<32>(D, R, S, C, m, n, b, shifts, st);
+    case 64: return launch_limbs<64>(D, R, S, C, m, n, b, shifts, st);
+    case 128: return launch_limbs<128>(D, R, S, C, m, n, b, shifts, st);
+    case 256: return launch_limbs<256>(D, R, S, C, m, n, b, shifts, st);
+    default: return ERR_WIDTH;
+  }
+}
+
 }  // namespace
 
 // C (m, b) = D (m, n) u8 . R (n, b) u32 mod 2^32 with n_stacked = N stacked
@@ -643,27 +626,20 @@ int launch_limbs(const void* D, const void* R, void* S, void* C, int64_t m,
 extern "C" int modmatmul_u8(const void* D, const void* R, void* S, void* C,
                             int64_t m, int64_t n, int64_t b, int64_t n_stacked,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m == 0 || b == 0) return 0;
-  if (n == 0) {
-    cudaMemsetAsync(C, 0, static_cast<size_t>(m * b) * 4, st);
-    return static_cast<int>(cudaGetLastError());
-  }
-  switch (n_stacked) {
-    case 32: return launch_limbs<32>(D, R, S, C, m, n, b, st);
-    case 64: return launch_limbs<64>(D, R, S, C, m, n, b, st);
-    case 128: return launch_limbs<128>(D, R, S, C, m, n, b, st);
-    case 256: return launch_limbs<256>(D, R, S, C, m, n, b, st);
-    default: return ERR_WIDTH;
-  }
+  return limb_entry(D, R, S, C, m, n, b, n_stacked, false, stream);
 }
 
-// 1 where modmatmul_u8 reads D by TMA, 0 where by predicated loads
+// 1 where the limb kernel reads D (n bytes a row) by TMA, 0 where by
+// predicated loads
 extern "C" int modmatmul_u8_tma(const void* D, int64_t n) {
   return d_by_tma(D, n) ? 1 : 0;
 }
 
-extern "C" int modmatmul_u32(const void* L, const void* R, void* C, int64_t m,
-                             int64_t n, int64_t b, void* stream) {
-  return launch<uint32_t>(L, R, C, m, n, b, stream);
+// C (m, b) = L (m, k) u32 . R (k, b) u32 mod 2^32: L read as u8 (m, 4k)
+// against R's shift planes, in the caller's scratch S of 4 b_pad rows of
+// n16 = 16 ceil(4k / 16) bytes; n_stacked as for modmatmul_u8.
+extern "C" int modmatmul_u32(const void* L, const void* R, void* S, void* C,
+                             int64_t m, int64_t k, int64_t b,
+                             int64_t n_stacked, void* stream) {
+  return limb_entry(L, R, S, C, m, 4 * k, b, n_stacked, true, stream);
 }

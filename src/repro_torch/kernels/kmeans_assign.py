@@ -1,8 +1,11 @@
 """CUDA fused k-means assignment (twin of ``repro/kernels/kmeans_assign.py``).
 
 The kernel (``csrc/kmeans_assign.cu``) fuses ``|x|² − 2·x·c + |c|²`` into a
-running (min, argmin) over centroid tiles held in shared memory, in fp32
-FMA with no TF32; strict ``<`` keeps the earliest index on ties.
+running (min, argmin) over centroid tiles, in fp32 FMA with no TF32; strict
+``<`` keeps the earliest index on ties.  A pre-pass writes the centroids
+transposed and zero-padded, with their squared norms, into a scratch this
+wrapper allocates; the main kernel keeps each block's 128 points in shared
+memory and streams the centroid tiles through a ``cp.async`` ring.
 """
 from __future__ import annotations
 
@@ -31,9 +34,13 @@ def kmeans_assign_cuda(x: torch.Tensor, c: torch.Tensor
     mind2 = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return assign, mind2
-    fn = _build.library("kmeans_assign").kmeans_assign_f32
-    code = fn(x.data_ptr(), c.data_ptr(), assign.data_ptr(), mind2.data_ptr(),
-              n, k, d, _build.stream_ptr(x.device))
+    lib = _build.library("kmeans_assign")
+    scratch = torch.empty(lib.kmeans_assign_scratch_floats(k, d),
+                          dtype=torch.float32, device=x.device)
+    code = lib.kmeans_assign_f32(x.data_ptr(), c.data_ptr(),
+                                 scratch.data_ptr(), assign.data_ptr(),
+                                 mind2.data_ptr(), n, k, d,
+                                 _build.stream_ptr(x.device))
     _build.LAUNCHES["kmeans_assign"] += 1
     _build.check(code, "kmeans_assign")
     return assign, mind2

@@ -8,8 +8,11 @@
   this wrapper allocates; the product runs ``wgmma`` u8 × u8 → s32 on them
   and recombines ``Σ_l sum_l << 8l`` in registers.  `ref.modmatmul_limbs_ref`
   is the same algorithm in int64 on any device.
-* L of u32 (A·S encryption, H·S decode): unsigned 32-bit multiply-add on
-  the CUDA cores, whose wraparound is the modulus.
+* L of u32 (A·S encryption, H·S decode): the same limb tile.  L read as
+  bytes is a u8 matrix (m, 4k); a prep kernel writes R's four shift planes
+  (`ref.shift_planes`: byte j − i of each word at limb i ≤ j of plane j)
+  into the scratch, and the same ``wgmma`` kernel forms ``Σ_j sum_j << 8j``.
+  `ref.modmatmul_u32_limbs_ref` is that algorithm in int64.
 
 u32 operands are int32 tensors holding the same bits.
 """
@@ -31,6 +34,28 @@ def _check(left: torch.Tensor, right: torch.Tensor) -> None:
         raise ValueError(f"inner dims differ: {left.shape} @ {right.shape}")
 
 
+def _launch(entry: str, left_u8: torch.Tensor, right: torch.Tensor, n: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the product and the plane scratch (one row of left's bytes
+    wide, padded to 16), launch ``entry`` (n: its contraction in left's own
+    elements) and count one launch."""
+    right = right.contiguous()
+    m, width = left_u8.shape
+    b = right.shape[1]
+    n_stacked, _, b_pad = ref.limb_plan(b)
+    planes = torch.empty((4 * b_pad, -(-width // 16) * 16),
+                         dtype=torch.uint8, device=left_u8.device)
+    out = torch.empty((m, b), dtype=torch.int32, device=left_u8.device)
+    if m == 0 or b == 0:
+        return out, planes
+    code = getattr(_build.library("modmatmul"), entry)(
+        left_u8.data_ptr(), right.data_ptr(), planes.data_ptr(),
+        out.data_ptr(), m, n, b, n_stacked, _build.stream_ptr(left_u8.device))
+    _build.LAUNCHES[entry] += 1
+    _build.check(code, entry)
+    return out, planes
+
+
 def limb_product(left: torch.Tensor, right: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``modmatmul_u8``: left (m, n) uint8, right (n, b) int32-held
@@ -40,28 +65,30 @@ def limb_product(left: torch.Tensor, right: torch.Tensor
     if left.dtype != torch.uint8:
         raise TypeError(f"left must be uint8, got {left.dtype}")
     left = left.contiguous()
-    right = right.contiguous()
-    m, n = left.shape
-    b = right.shape[1]
-    n_stacked, _, b_pad = ref.limb_plan(b)
-    planes = torch.empty((4 * b_pad, -(-n // 16) * 16), dtype=torch.uint8,
-                         device=left.device)
-    out = torch.empty((m, b), dtype=torch.int32, device=left.device)
-    if m == 0 or b == 0:
-        return out, planes
-    code = _build.library("modmatmul").modmatmul_u8(
-        left.data_ptr(), right.data_ptr(), planes.data_ptr(), out.data_ptr(),
-        m, n, b, n_stacked, _build.stream_ptr(left.device))
-    _build.LAUNCHES["modmatmul_u8"] += 1
-    _build.check(code, "modmatmul_u8")
-    return out, planes
+    return _launch("modmatmul_u8", left, right, left.shape[1])
+
+
+def shift_product(left: torch.Tensor, right: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``modmatmul_u32``: left (m, k) and right (k, b), both
+    int32-held u32 on one CUDA device → ((m, b) int32-held product, the
+    shift-plane scratch the prep kernel wrote, laid out as
+    `ref.shift_planes`).  The kernel reads left as u8 (m, 4k)."""
+    _check(left, right)
+    if left.dtype != torch.int32:
+        raise TypeError(f"left must be int32-held u32, got {left.dtype}")
+    return _launch("modmatmul_u32", left.contiguous().view(torch.uint8),
+                   right, left.shape[1])
 
 
 def u8_producer(left: torch.Tensor) -> str:
-    """How `limb_product` fills its ring with ``left``'s bytes: ``"tma"``
-    (row stride a multiple of 16 bytes, base 16-byte aligned) or
-    ``"predicated"`` (byte loads, the same swizzle); the C entry's own test."""
+    """How the limb kernel fills its ring with ``left``'s bytes (a u32 left
+    is read as u8, 4 bytes a word): ``"tma"`` (row stride a multiple of 16
+    bytes, base 16-byte aligned) or ``"predicated"`` (byte loads, the same
+    swizzle); the C entry's own test."""
     left = left.contiguous()
+    if left.dtype == torch.int32:
+        left = left.view(torch.uint8)
     tma = _build.library("modmatmul").modmatmul_u8_tma(left.data_ptr(),
                                                        left.shape[1])
     return "tma" if tma else "predicated"
@@ -74,16 +101,4 @@ def modmatmul_cuda(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     _check(left, right)
     if left.dtype == torch.uint8:
         return limb_product(left, right)[0]
-    left = left.contiguous()
-    right = right.contiguous()
-    m, n = left.shape
-    b = right.shape[1]
-    out = torch.empty((m, b), dtype=torch.int32, device=left.device)
-    if m == 0 or b == 0:
-        return out
-    code = _build.library("modmatmul").modmatmul_u32(
-        left.data_ptr(), right.data_ptr(), out.data_ptr(), m, n, b,
-        _build.stream_ptr(left.device))
-    _build.LAUNCHES["modmatmul_u32"] += 1
-    _build.check(code, "modmatmul_u32")
-    return out
+    return shift_product(left, right)[0]

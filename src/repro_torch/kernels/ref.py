@@ -81,24 +81,19 @@ def limb_planes(right: torch.Tensor) -> torch.Tensor:
     return planes.reshape(4 * b_pad, n16).to(torch.uint8).contiguous()
 
 
-def modmatmul_limbs_ref(db_u8: torch.Tensor, right: torch.Tensor
-                        ) -> torch.Tensor:
-    """``(db_u8 @ right) mod 2^32`` the way `modmatmul_u8` computes it.
-
-    The u8 DB times `limb_planes` of R, as u8 x u8 sums in int64 over
-    contraction chunks of `LIMB_CHUNK` (each chunk's limb sums are asserted
-    below 2^31, the s32 accumulator's range), then ``Σ_l sum_l << 8l`` and
-    the chunks added under the mask.  db_u8: (m, n) uint8; right: (n, b)
-    int32-held u32 → (m, b) int32-held u32.
-    """
-    m, n = db_u8.shape
-    b = right.shape[1]
+def _chunked_limb_product(left_u8: torch.Tensor, planes: torch.Tensor,
+                          b: int) -> torch.Tensor:
+    """The limb tile's arithmetic: u8 rows times stacked u8 planes (laid
+    out per `limb_plan`) as int64 sums over contraction chunks of
+    `LIMB_CHUNK` bytes, each chunk's sums asserted below 2^31 (the s32
+    accumulator's range), then ``Σ_l sum_l << 8l`` and the chunks added
+    under the mask → (m, b) int32-held u32."""
+    m, n = left_u8.shape
     _, bno, b_pad = limb_plan(b)
-    planes = limb_planes(right)
-    out = torch.zeros((m, b_pad), dtype=torch.int64, device=db_u8.device)
+    out = torch.zeros((m, b_pad), dtype=torch.int64, device=left_u8.device)
     for k0 in range(0, n, LIMB_CHUNK):
         k1 = min(n, k0 + LIMB_CHUNK)
-        sums = db_u8[:, k0:k1].to(torch.int64) @ planes[:, k0:k1].to(
+        sums = left_u8[:, k0:k1].to(torch.int64) @ planes[:, k0:k1].to(
             torch.int64).T
         if sums.numel() and int(sums.max()) >= 1 << 31:
             raise AssertionError("a limb sum left the s32 range")
@@ -106,6 +101,52 @@ def modmatmul_limbs_ref(db_u8: torch.Tensor, right: torch.Tensor
         part = sum(sums[:, :, l, :] << (8 * l) for l in range(4))
         out = (out + part.reshape(m, b_pad)) & MASK
     return wrap_i32(out[:, :b])
+
+
+def modmatmul_limbs_ref(db_u8: torch.Tensor, right: torch.Tensor
+                        ) -> torch.Tensor:
+    """``(db_u8 @ right) mod 2^32`` the way `modmatmul_u8` computes it: the
+    u8 DB times `limb_planes` of R on the limb tile's arithmetic.
+    db_u8: (m, n) uint8; right: (n, b) int32-held u32 → (m, b) int32-held
+    u32.
+    """
+    return _chunked_limb_product(db_u8, limb_planes(right), right.shape[1])
+
+
+def shift_planes(right: torch.Tensor) -> torch.Tensor:
+    """R's four shift planes against a u32 left operand read as bytes, as
+    `modmatmul_u32`'s prep kernel writes them: (4 b_pad, n16) uint8 with
+    n16 = 16 ceil(4k/16).
+
+    Row ``t·4·bno + j·bno + c``, column ``4κ + i`` holds byte ``j − i`` of
+    ``R[κ, t·bno + c]`` where i ≤ j, and 0 where i > j, past b or past 4k.
+    right: (k, b) int32-held u32.
+    """
+    k, b = right.shape
+    _, bno, b_pad = limb_plan(b)
+    n16 = -(-4 * k // 16) * 16
+    padded = torch.zeros((k, b_pad), dtype=torch.int64, device=right.device)
+    padded[:, :b] = as_i64(right)
+    planes = torch.zeros((4, n16, b_pad), dtype=torch.int64,
+                         device=right.device)
+    for j in range(4):
+        for i in range(j + 1):
+            planes[j, i:4 * k:4] = (padded >> (8 * (j - i))) & 0xFF
+    # (j, 4κ + i, t·bno + c) -> (t, j, c, 4κ + i)
+    planes = planes.reshape(4, n16, b_pad // bno, bno).permute(2, 0, 3, 1)
+    return planes.reshape(4 * b_pad, n16).to(torch.uint8).contiguous()
+
+
+def modmatmul_u32_limbs_ref(left_u32: torch.Tensor, right: torch.Tensor
+                            ) -> torch.Tensor:
+    """``(left_u32 @ right) mod 2^32`` the way `modmatmul_u32` computes it:
+    left read as little-endian bytes (m, 4k) times `shift_planes` of R on
+    the limb tile's arithmetic, ``Σ_j sum_j << 8j`` (the limb products with
+    i + l ≥ 4 vanish mod 2^32).  left_u32: (m, k), right: (k, b), both
+    int32-held u32 → (m, b) int32-held u32.
+    """
+    left_u8 = left_u32.contiguous().view(torch.uint8)
+    return _chunked_limb_product(left_u8, shift_planes(right), right.shape[1])
 
 
 def delta_gemm_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,

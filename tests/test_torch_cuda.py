@@ -81,16 +81,22 @@ def test_kmeans_assign_matches_plain(cuda, n, k, d):
     x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda)
     c = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32)).to(cuda)
     got_a, got_d = ops.kmeans_assign(x, c, impl="cuda")
+    _kmeans_rule(x, c, got_a, got_d)
+
+
+def _kmeans_rule(x, c, got_a, got_d):
+    """The plain version's rule: min_d2 allclose(1e-5); assignments equal
+    wherever the plain top-2 gap exceeds 1e-5·(|x|² + |c|²)."""
     want_a, want_d = ref.kmeans_assign_ref(x, c)
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
+    if c.shape[0] == 1:
+        assert torch.equal(got_a, want_a)
+        return
     full = (torch.sum(x * x, 1, keepdim=True) - 2.0 * (x @ c.T)
             + torch.sum(c * c, 1)[None, :])
-    if k > 1:
-        top2 = torch.topk(full, 2, dim=1, largest=False).values
-        scale = torch.sum(x * x, 1) + torch.sum(c * c, 1)[want_a.long()]
-        clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * scale
-    else:
-        clear = torch.ones(n, dtype=torch.bool, device=cuda)
+    top2 = torch.topk(full, 2, dim=1, largest=False).values
+    scale = torch.sum(x * x, 1) + torch.sum(c * c, 1)[want_a.long()]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-5 * scale
     assert torch.equal(got_a[clear], want_a[clear])
 
 
@@ -316,3 +322,88 @@ def test_add_delta_vector_tail(cuda, n):
     got = ops.add_delta(hint, delta, impl="cuda")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# the u32 x u32 product on the limb tile: H read as bytes, R's shift planes
+@pytest.mark.parametrize("m,k,b", [
+    (1, 1, 1), (257, 3, 9), (1000, 1024, 1), (1000, 1024, 64),
+    (4099, 1025, 63), (129, 256, 65), (300, 1024, 257), (64, 8193, 3),
+])
+def test_modmatmul_u32_shift_kernel_bitwise(cuda, m, k, b):
+    """b = 1 and b = 64 at the LWE width (TMA), 4k off 16 bytes (the
+    predicated producer), every stacked width, k past one 32,768-byte
+    contraction chunk: one launch, bitwise."""
+    from repro_torch.kernels import modmatmul
+    rng = np.random.default_rng(m + 3 * k + b)
+    h = _u32(rng, (m, k), cuda)
+    s = _u32(rng, (k, b), cuda)
+    ops.reset_launch_counts()
+    got, _ = modmatmul.shift_product(h, s)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modmatmul_u32"] == 1
+    assert ops.launch_counts()["modmatmul_u8"] == 0
+    assert modmatmul.u8_producer(h) == ("tma" if k % 4 == 0 else "predicated")
+    assert torch.equal(got, ref.modmatmul_ref(h, s))
+
+
+@pytest.mark.parametrize("k,b", [(1, 1), (3, 9), (1024, 1), (1024, 64),
+                                 (1025, 65), (256, 1024)])
+def test_modmatmul_u32_prep_planes_match_ref_shift_planes(cuda, k, b):
+    """The prep kernel's shift planes equal `ref.shift_planes`, padding rows
+    and columns included."""
+    from repro_torch.kernels import modmatmul
+    rng = np.random.default_rng(k + b)
+    s = _u32(rng, (k, b), cuda)
+    _, planes = modmatmul.shift_product(_u32(rng, (3, k), cuda), s)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.shift_planes(s))
+
+
+def test_modmatmul_u32_row_slice_off_alignment(cuda):
+    """A contiguous view 4 bytes into its buffer: the row stride 4k is a
+    multiple of 16 but the base is not 16-byte aligned, so the predicated
+    producer reads H; bitwise, and so is an all-0xFFFFFFFF wraparound."""
+    from repro_torch.kernels import modmatmul
+    rng = np.random.default_rng(9)
+    m, k = 1000, 1024
+    h = _u32(rng, (m * k + 1,), cuda)[1:].view(m, k)
+    s = _u32(rng, (k, 16), cuda)
+    assert modmatmul.u8_producer(h) == "predicated"
+    assert torch.equal(ops.mod_u32_matmul(h, s, impl="cuda"),
+                       ref.modmatmul_ref(h, s))
+    ones = torch.full((300, 8193), -1, dtype=torch.int32, device=cuda)
+    allf = torch.full((8193, 5), -1, dtype=torch.int32, device=cuda)
+    assert torch.equal(ops.mod_u32_matmul(ones, allf, impl="cuda"),
+                       ref.modmatmul_ref(ones, allf))
+
+
+@pytest.mark.parametrize("n,k,d", [
+    (1000, 1000, 128), (129, 257, 64), (127, 129, 33), (257, 130, 384),
+    (300, 200, 385), (300, 200, 768), (5000, 1, 128),
+])
+def test_kmeans_assign_tiles_and_feature_chunks(cuda, n, k, d):
+    """N and K off the 128-point and 128-centroid tiles, d off 4 (scalar
+    point loads), d = 384 (the last resident width) and d = 385, 768 (the
+    feature axis walked in chunks): one launch, the plain version's rule."""
+    rng = np.random.default_rng(n + 2 * k + d)
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((k, d), dtype=np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    got_a, got_d = ops.kmeans_assign(x, c, impl="cuda")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["kmeans_assign"] == 1
+    _kmeans_rule(x, c, got_a, got_d)
+
+
+@pytest.mark.parametrize("d", [16, 768])
+def test_kmeans_assign_ties_across_centroid_tiles(cuda, d):
+    """Three exact copies of 100 centroids: copies sit in the same tile, in
+    the next tile and across the 16 threads of a point; every point must
+    take the first copy, with the same distance as against the originals."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((1000, d), dtype=np.float32)).to(cuda)
+    c0 = torch.from_numpy(rng.standard_normal((100, d), dtype=np.float32)).to(cuda)
+    got_a, got_d = ops.kmeans_assign(x, torch.cat([c0, c0, c0]), impl="cuda")
+    want_a, want_d = ops.kmeans_assign(x, c0, impl="cuda")
+    assert int(got_a.max()) < 100
+    assert torch.equal(got_a, want_a) and torch.equal(got_d, want_d)
