@@ -19,7 +19,12 @@ path at full width and checks what comes out.  The phases, in order:
            the u32 products on the same limb tile at b = 1 at P's and K's
            bucket-hint heights, b off the column tiles, 4k past one
            contraction chunk, a view off 16-byte alignment (predicated
-           producer required) and wraparound;
+           producer required) and wraparound; delta_gemm's two layouts of
+           [new | old] (packed, two tensor maps) at J off and on 16 and 2J
+           past one contraction chunk, and A_J of 0, 1, 2^31, 2^32 - 1;
+           the grouped tile at W on and off 16 bytes, C = 1, 16, 17, phase
+           K's 24 buckets and a sub-DB off 16-byte alignment (predicated
+           producer required for it alone);
            k-means min-d2 allclose (rtol 1e-5, atol 1e-5)
            and assignments equal wherever the plain top-2 gap exceeds
            1e-5 * (|x|^2 + |c|^2)
@@ -62,7 +67,9 @@ path at full width and checks what comes out.  The phases, in order:
            same functions, never called by the port) time torch._int_mm at
            the u8 limb kernel's stacked s8 shapes and cuBLAS fp32 x @ c.T
            (TF32 off) at the Lloyd block, and C's H·S is timed beside C's
-           answer, the same byte shape on the same kernel
+           answer, the same byte shape on the same kernel; delta_gemm's
+           pack is timed apart at U's shapes, and at J = 256 both layouts
+           in turns; K's answer pass beside P's
 
 Launch counts are set to 0 just before each of phases B, U, S, P, K and C
 and read just after it; every kernel of a path must have launched in it.
@@ -70,8 +77,9 @@ Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
 the device's busy share (in P's traced tick, also the device ms of the
 u32 products).  The ``sass`` lines must show GMMA in every width of the
-limb tile, no IMAD GEMM left, and kmeans_assign on FFMA with no HMMA.  Each output line is one JSON object,
-except the nvidia-smi line.  The second-to-last line is the kernel table
+limb tile in each of modmatmul.cu, delta_gemm.cu and bucketed_modmatmul.cu,
+no IMAD GEMM left in any source, and kmeans_assign on FFMA with no HMMA.
+Each output line is one JSON object, except the nvidia-smi line.  The second-to-last line is the kernel table
 (``{"kernels": [...]}``), the last ``{"ok": true, "device": {...}}``.  Any
 mismatch raises, and the exit code is then not 0.  Without a CUDA device the
 script exits 2 before it prints anything.
@@ -103,7 +111,8 @@ from repro_torch.batchpir.server import bucket_rows  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
-from repro_torch.kernels import _build, modmatmul, ops, ref  # noqa: E402
+from repro_torch.kernels import (_build, bucketed_modmatmul,  # noqa: E402
+                                 delta_gemm, modmatmul, ops, ref)
 from repro_torch.serve import PIRServeLoop  # noqa: E402
 from repro_torch.update import (HintCache, LiveIndex, journal,  # noqa: E402
                                 planner)
@@ -334,6 +343,39 @@ def check_bucketed(card, dbs, qs, what):
                                  f"{u32_max_abs_err(got[b], want)}")
 
 
+def check_delta_layout(card, new, old, a_j, pack, what):
+    """delta_gemm with its left operand packed or read by two tensor maps
+    (in a rehearsal, the int64 emulation of that layout) against its plain
+    version, bitwise."""
+    if card.rehearse:
+        got = ref.delta_gemm_limbs_ref(new, old, a_j, two_maps=not pack)
+    else:
+        got, _, packed = delta_gemm.delta_product(new, old, a_j, pack=pack)
+        if (packed is not None) != pack:
+            raise AssertionError(f"delta_gemm {what}: wrong layout")
+    want = ref.delta_gemm_ref(new, old, a_j)
+    if not torch.equal(got, want):
+        layout = "packed" if pack else "two maps"
+        raise AssertionError(f"delta_gemm {what} ({layout}): kernel != "
+                             f"plain, max err {u32_max_abs_err(got, want)}")
+
+
+def check_bucketed_tile(card, dbs, qs, what):
+    """The grouped limb tile (in a rehearsal, its int64 emulation) against
+    the plain version, bitwise; returns how many buckets the predicated
+    producer read (None in a rehearsal)."""
+    if card.rehearse:
+        got, predicated = ref.bucketed_modmatmul_limbs_ref(dbs, qs), None
+    else:
+        got, _, predicated = bucketed_modmatmul.grouped_product(dbs, qs)
+    for b, want in enumerate(ref.bucketed_modmatmul_ref(dbs, qs)):
+        if not torch.equal(got[b], want):
+            raise AssertionError(f"bucketed_modmatmul {what}: bucket {b} "
+                                 f"kernel != plain, max err "
+                                 f"{u32_max_abs_err(got[b], want)}")
+    return predicated
+
+
 def check_assign(card, x, c, what):
     """min_d2 allclose(1e-5, 1e-5); assignments equal where the plain
     top-2 gap exceeds 1e-5 · (|x|² + |c|²).  Returns max |Δ min_d2|."""
@@ -443,6 +485,30 @@ def kernel_phase(card, cfg):
                                device=dev),
                     torch.full((70, 45), -1, dtype=torch.int32, device=dev),
                     f"wraparound {new_val}-{old_val}")
+    # the limb tile's own cases: J off and on 16 and one 128-byte stage,
+    # 2J past one contraction chunk, both layouts of [new | old]
+    layout_cases = [(9, 1, 70), (130, 51, 1024), (130, 64, 1024),
+                    (130, 65, 70), (257, 256, 1024), (3, 16_400, 5),
+                    (rows, j2, 1024)]
+    layouts = []
+    for m, j, k in layout_cases:
+        new, old = _u8(gen, (m, j), dev), _u8(gen, (m, j), dev)
+        a_j = _u32(gen, (j, k), dev)
+        for pack in (True, False) if j % 16 == 0 else (True,):
+            check_delta_layout(card, new, old, a_j, pack, f"{m}x{j}x{k}")
+            layouts.append(dict(shape=f"{m}x{j}x{k}",
+                                left="packed" if pack else "two maps"))
+    specials = torch.tensor([0, 1, -2**31, -1], dtype=torch.int32,
+                            device=dev)
+    for j in (51, 64):
+        for new_val, old_val in ((255, 0), (0, 255)):
+            check_delta(card,
+                        torch.full((300, j), new_val, dtype=torch.uint8,
+                                   device=dev),
+                        torch.full((300, j), old_val, dtype=torch.uint8,
+                                   device=dev),
+                        specials.repeat(j, 3),
+                        f"A_J of 0, 1, 2^31, 2^32-1, {new_val}-{old_val}")
     # the last three leave 1, 2 and 3 words past the 16-byte vectors
     add_cases = [(1,), (3,), (1023,), (rows, 1024), (rows * 1024 + 1,),
                  (rows * 1024 + 2,), (rows * 1024 + 3,)]
@@ -472,12 +538,46 @@ def kernel_phase(card, cfg):
                     for m in (129, 3)],
                    torch.full((2, 300, 5), -1, dtype=torch.int32, device=dev),
                    "wraparound")
+    # the limb tile's own cases: heights off 128 with a one-row and an empty
+    # bucket, W on and off 16 bytes, C = 1, 16, 17 (N = 32, 64, 128), phase
+    # K's 24 buckets; TMA reads every non-empty bucket where W % 16 == 0
+    tile_cases = [((1, 130, 0, 257), w, c) for w in (128, 255, 256)
+                  for c in (1, 16, 17)]
+    tile_cases.append((tuple(max(1, rows - 91 * b) for b in range(24)), 128,
+                       cfg["k_batch"]))
+    producers_b = []
+    for heights, w, c in tile_cases:
+        what = f"{len(heights)} buckets up to {max(heights)} rows, W {w}, C {c}"
+        pred = check_bucketed_tile(
+            card, [_u8(gen, (m, w), dev) for m in heights],
+            _u32(gen, (len(heights), w, c), dev), what)
+        want = 0 if w % 16 == 0 else sum(1 for m in heights if m)
+        if pred is not None and pred != want:
+            raise AssertionError(f"bucketed_modmatmul {what}: {pred} buckets "
+                                 f"predicated, not {want}")
+        producers_b.append(dict(buckets=len(heights), w=w, c=c,
+                                predicated=pred))
+    # a sub-DB 4 bytes off 16-byte alignment beside two read by TMA
+    whole = _u8(gen, (rows * 256 + 4,), dev)
+    off = whole[4:].view(rows, 256)
+    pred = check_bucketed_tile(card, [_u8(gen, (129, 256), dev), off,
+                                      _u8(gen, (7, 256), dev)],
+                               _u32(gen, (3, 256, 16), dev),
+                               "a base off 16 bytes")
+    if pred is not None and pred != 1:
+        raise AssertionError(f"bucketed_modmatmul: a base off 16 bytes gave "
+                             f"{pred} predicated buckets, not 1")
+    producers_b.append(dict(buckets=3, w=256, c=16, view="+4 bytes",
+                            predicated=pred))
+    emit(phase="kernels producers", delta_gemm=layouts,
+         bucketed_modmatmul=producers_b)
     card.sync()
     emit(phase="kernels", passed=True, modmatmul_u8_cases=len(u8_cases) + 3,
          modmatmul_u32_cases=len(u32_cases) + 3, kmeans_assign_cases=6,
-         delta_gemm_cases=len(delta_cases) + 2,
+         delta_gemm_cases=len(delta_cases) + 2 + len(layouts) + 4,
          add_delta_cases=len(add_cases) + 2,
-         bucketed_modmatmul_cases=len(bucketed_cases) + 1,
+         bucketed_modmatmul_cases=len(bucketed_cases) + 1
+         + len(producers_b),
          rule="mod-2^32 products and adds bitwise; kmeans min_d2 "
               "allclose(1e-5,1e-5), assignments equal where top-2 gap > "
               "1e-5*(|x|^2+|c|^2)")
@@ -1175,6 +1275,7 @@ def phase_k(card, cfg):
         phase="K", rows=v, dim=d, group_size=lay.group_size,
         groups=lay.n_groups, m=system.db.m, kappa=kappa,
         n_buckets=bp.partition.n_buckets, width=bp.partition.width,
+        bucket_rows=[c.m for c in bp.server.cfgs],
         sum_rows=sum(c.m for c in bp.server.cfgs),
         bucket_hint_bytes=bp.server.hint_bytes, build_seconds=build_s,
         offered=len(asks), served=len(served), failed=loop.failed_requests,
@@ -1309,7 +1410,54 @@ def cublas_beside_assign(card, x, c, assign_ms):
                      "port")
 
 
-def timing_phase(card, cfg, state, launches, u_epochs, line_p):
+def delta_layouts(card, new, old, a_j, ms, epoch):
+    """The pack alone, and (where J % 16 == 0) the delta kernel with its
+    left operand packed beside it read by two tensor maps, in turns
+    (packed, two maps, two maps, packed), at one of phase U's shapes; the
+    default layout's time ``ms`` comes from the caller."""
+    m, j = new.shape
+    n2 = ref.delta_layout(j)[1]
+    pack_ms = card.time_ms(lambda: delta_gemm.pack_cuda(new, old), reps=5)
+    pb, pby = _bound(2 * m * j + m * n2, 0, INT8_OPS_PER_S)
+    line = dict(phase="timing", op=f"delta epoch {epoch} layouts",
+                shape=f"{m}x{j}x{a_j.shape[1]}", default_ms=ms,
+                default="packed" if delta_gemm.packs(new, old)
+                else "two maps", pack_ms=pack_ms, pack_bound_ms=pb,
+                pack_bound_by=pby, pack_share=pack_ms / ms)
+    if j % 16 == 0:
+        times = {True: [], False: []}
+        for pack in (True, False, False, True):
+            times[pack].append(card.time_ms(
+                lambda: delta_gemm.delta_product(new, old, a_j, pack=pack),
+                reps=5))
+        line.update(packed_ms=sum(times[True]) / 2,
+                    two_maps_ms=sum(times[False]) / 2)
+    return line
+
+
+def bucketed_pass(card, heights, w, c, phase):
+    """One batch-PIR answer pass at a phase's bucket heights and batch
+    width, checked bitwise against the plain version and timed: (shape, ms,
+    plain ms, max err, bytes, operations)."""
+    gen = torch.Generator(device=card.dev).manual_seed(20)
+    dbs = [_u8(gen, (m, w), card.dev) for m in heights]
+    q3 = _u32(gen, (len(heights), w, c), card.dev)
+    got = ops.bucketed_modmatmul(dbs, q3, impl=card.impl)
+    want, plain_ms = card.once_ms(lambda: ref.bucketed_modmatmul_ref(dbs, q3))
+    err = max(u32_max_abs_err(g, x) for g, x in zip(got, want))
+    del got, want
+    if err:
+        raise AssertionError(f"bucketed_modmatmul at phase {phase}'s shape: "
+                             f"max err {err}")
+    ms = card.time_ms(lambda: ops.bucketed_modmatmul(dbs, q3,
+                                                     impl=card.impl), reps=5)
+    total = sum(heights)
+    return (f"answer pass {len(heights)} buckets, {total}x{w}x{c}", ms,
+            plain_ms, err, total * w + 4 * len(heights) * w * c + 4 * total * c,
+            2 * total * w * c * 4)
+
+
+def timing_phase(card, cfg, state, launches, u_epochs, line_p, line_k):
     rows = cfg["plain_rows"]
     db, hint, qs, secrets = (state["db"], state["hint"], state["qs"],
                              state["secrets"])
@@ -1450,6 +1598,8 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
             emit(phase="timing", op=f"delta epoch {u['epoch']}",
                  kernel="delta_gemm", shape=args[0], ms=ms, plain_ms=plain_ms,
                  max_abs_err=err, bound_ms=bms, bound_by=bby)
+        if not card.rehearse:
+            emit(**delta_layouts(card, new, old, a_j, ms, u["epoch"]))
         del new, old, a_j
 
     # folding dH into the hint at phase B's width
@@ -1477,26 +1627,19 @@ def timing_phase(card, cfg, state, launches, u_epochs, line_p):
           "written", library_ms=lib_ms)
     del hint_t, delta_t
 
-    # one batch-PIR answer pass at phase P's bucket heights and batch width
-    heights, w, c = line_p["bucket_rows"], line_p["width"], cfg["p_batch"]
-    dbs = [_u8(gen, (m, w), card.dev) for m in heights]
-    q3 = _u32(gen, (len(heights), w, c), card.dev)
-    got = ops.bucketed_modmatmul(dbs, q3, impl=card.impl)
-    want, plain_ms = card.once_ms(lambda: ref.bucketed_modmatmul_ref(dbs, q3))
-    err = max(u32_max_abs_err(g, x) for g, x in zip(got, want))
-    del got, want
-    if err:
-        raise AssertionError(f"bucketed_modmatmul at phase P's shape: max "
-                             f"err {err}")
-    ms = card.time_ms(lambda: ops.bucketed_modmatmul(dbs, q3,
-                                                     impl=card.impl), reps=5)
-    total = sum(heights)
-    entry("bucketed_modmatmul",
-          f"answer pass {len(heights)} buckets, {total}x{w}x{c}", ms,
-          plain_ms, err, total * w + 4 * len(heights) * w * c + 4 * total * c,
-          2 * total * w * c * 4, INT8_OPS_PER_S,
-          "every sub-DB read once, or 4 int8 limb MACs per u8 x u32 MAC on "
-          "the int8 tensor cores")
+    # one batch-PIR answer pass at phase P's and phase K's bucket heights
+    # and batch width
+    shape, ms, plain_ms, err, bytes_, ops_ = bucketed_pass(
+        card, line_p["bucket_rows"], line_p["width"], cfg["p_batch"], "P")
+    entry("bucketed_modmatmul", shape, ms, plain_ms, err, bytes_, ops_,
+          INT8_OPS_PER_S, "every sub-DB read once, or 4 int8 limb MACs per "
+          "u8 x u32 MAC on the int8 tensor cores")
+    shape, ms, plain_ms, err, bytes_, ops_ = bucketed_pass(
+        card, line_k["bucket_rows"], line_k["width"], cfg["k_batch"], "K")
+    bound, by = _bound(bytes_, ops_, INT8_OPS_PER_S)
+    emit(phase="timing", op="K answer pass", kernel="bucketed_modmatmul",
+         shape=shape, ms=ms, plain_ms=plain_ms, max_abs_err=err,
+         bound_ms=bound, bound_by=by)
     return table
 
 
@@ -1532,21 +1675,37 @@ def sass_line(source: str) -> dict:
     return dict(phase="sass", source=f"csrc/{source}.cu", kernels=counts)
 
 
-def check_sass(mod, km) -> None:
-    """The u32 product runs the shift-plane prep and the limb tile, whose
-    every width holds GMMA, and no IMAD GEMM is left; kmeans_assign runs on
-    FFMA with no tensor-core MMA (no TF32)."""
-    kernels = mod["kernels"]
-    tiles = [k for k in kernels if k.startswith("limb_gemm_kernel<")]
-    if ("shift_planes_kernel" not in kernels or len(tiles) != 4
-            or any(kernels[k]["GMMA"] == 0 for k in tiles)
-            or "modmatmul_kernel" in kernels):
-        raise AssertionError(f"modmatmul.cu sass: {kernels}")
-    assign = [v for k, v in km["kernels"].items()
-              if k.startswith("kmeans_assign_kernel")]
+#: the IMAD GEMM kernels the limb tile replaced; none may be left
+IMAD_GEMMS = ("modmatmul_kernel", "delta_gemm_kernel", "bucketed_kernel")
+
+
+def check_sass(lines) -> None:
+    """Each of the three mod-2^32 sources runs the limb tile, whose every
+    width holds GMMA, beside its own prep (modmatmul.cu the shift planes too,
+    delta_gemm.cu the pack), and no IMAD GEMM is left in any source;
+    kmeans_assign runs on FFMA with no tensor-core MMA (no TF32)."""
+    by_source = {ln["source"]: ln["kernels"] for ln in lines}
+    preps = {"csrc/modmatmul.cu": ("limb_planes_kernel", "shift_planes_kernel"),
+             "csrc/delta_gemm.cu": ("limb_planes_kernel",),
+             "csrc/bucketed_modmatmul.cu": ("limb_planes_kernel",)}
+    for source, kernels in by_source.items():
+        if any(k.startswith(name) for k in kernels for name in IMAD_GEMMS):
+            raise AssertionError(f"{source} sass: an IMAD GEMM is left: "
+                                 f"{kernels}")
+        if source not in preps:
+            continue
+        tiles = [k for k in kernels if k.startswith("limb_gemm_kernel<")]
+        if (len(tiles) != 4 or any(kernels[k]["GMMA"] == 0 for k in tiles)
+                or not all(p in kernels for p in preps[source])):
+            raise AssertionError(f"{source} sass: {kernels}")
+    if not any(k.startswith("delta_pack_kernel")
+               for k in by_source["csrc/delta_gemm.cu"]):
+        raise AssertionError("delta_gemm.cu sass: no delta_pack_kernel")
+    km = by_source["csrc/kmeans_assign.cu"]
+    assign = [v for k, v in km.items() if k.startswith("kmeans_assign_kernel")]
     if not assign or any(v["FFMA"] == 0 or v["HMMA"] or v["GMMA"]
                          for v in assign):
-        raise AssertionError(f"kmeans_assign.cu sass: {km['kernels']}")
+        raise AssertionError(f"kmeans_assign.cu sass: {km}")
 
 
 def device_line() -> str:
@@ -1583,10 +1742,10 @@ def main(argv=None) -> int:
         nvcc_seconds = _build.build_all()
         emit(phase="build", seconds=time.perf_counter() - t_build,
              sources=list(_build.SOURCES), nvcc_seconds=nvcc_seconds)
-        sass = [sass_line("modmatmul"), sass_line("kmeans_assign")]
+        sass = [sass_line(src) for src in _build.SOURCES]
         for line in sass:
             emit(**line)
-        check_sass(*sass)
+        check_sass(sass)
     kernel_phase(card, cfg)
 
     paths = {}
@@ -1663,7 +1822,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"phase {path}: a kernel of the path "
                                      f"was not launched: {counts}")
 
-    table = timing_phase(card, cfg, state, launches, u_epochs, line_p)
+    table = timing_phase(card, cfg, state, launches, u_epochs, line_p,
+                         line_k)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     if args.rehearse:

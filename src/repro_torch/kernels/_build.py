@@ -1,6 +1,8 @@
 """Build the CUDA sources in ``csrc/`` at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own::
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+(``modmatmul``, ``delta_gemm`` and ``bucketed_modmatmul`` each include the
+shared limb tile ``csrc/limb_tile.cuh``)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o .build/<name>-<hash>.so csrc/<name>.cu
@@ -45,10 +47,15 @@ _SIGNATURES = {
     "kmeans_assign": {"kmeans_assign_f32": (_P, _P, _P, _P, _P, _I, _I, _I,
                                             _P),
                       "kmeans_assign_scratch_floats": (_I, _I)},
-    "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "delta_gemm": {"delta_gemm_u8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P),
+                   "delta_pack_u8": (_P, _P, _P, _I, _I, _P),
                    "add_delta_u32": (_P, _P, _I, _P)},
     "bucketed_modmatmul": {
-        "bucketed_modmatmul_u8": (_P, _I, _P, _P, _I, _I, _I, _P),
+        "bucketed_modmatmul_u8": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P),
+        "bucketed_modmatmul_groups": (_P, _P, _I, _I),
+        "bucketed_modmatmul_group_bytes": (),
         "bucketed_modmatmul_tile_rows": ()},
 }
 

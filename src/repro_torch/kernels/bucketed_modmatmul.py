@@ -1,12 +1,16 @@
 """CUDA grouped bucketed mod-2^32 product (twin of the Pallas branch of
 ``repro/kernels/ops.py`` ``bucketed_modmatmul``).
 
-The kernel (``csrc/bucketed_modmatmul.cu``) computes ``D_b @ Q_b mod 2^32``
-for every batch-PIR bucket in one launch.  The sub-DBs keep their own
-heights: a device table of base pointers, output row offsets and row-tile
-offsets maps each row tile of the grid to its bucket, so nothing is padded
-or stacked and no padded row is read.  u32 operands are int32 tensors
-holding the same bits.
+``csrc/bucketed_modmatmul.cu`` computes ``D_b @ Q_b mod 2^32`` for every
+batch-PIR bucket in one pass on the u8 limb tile of ``modmatmul_u8``.  A
+prep kernel writes every bucket's limb planes into one scratch
+(`ref.bucketed_planes`); the persistent tile kernel walks (bucket, band,
+column tile) back to back.  The sub-DBs keep their own heights: a table of
+per-bucket tensor maps, base pointers, output row offsets and tile offsets,
+encoded here on the host and copied to the card, maps each tile to its
+bucket, so nothing is padded or stacked and no padded row is read.
+`ref.bucketed_modmatmul_limbs_ref` is the same algorithm in int64.  u32
+operands are int32 tensors holding the same bits.
 """
 from __future__ import annotations
 
@@ -14,14 +18,15 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 
-def bucketed_modmatmul_cuda(dbs: Sequence[torch.Tensor], qs: torch.Tensor
-                            ) -> list[torch.Tensor]:
+def grouped_product(dbs: Sequence[torch.Tensor], qs: torch.Tensor
+                    ) -> tuple[list[torch.Tensor], torch.Tensor, int]:
     """Launch the kernel once: dbs B (m_b, W) uint8, qs (B, W, C) int32-held
-    u32, all on one CUDA device → B (m_b, C) int32-held u32 tensors (views
-    of one (Σ m_b, C) buffer)."""
+    u32, all on one CUDA device → (B (m_b, C) int32-held u32 views of one
+    (Σ m_b, C) buffer, the plane scratch the prep wrote, how many non-empty
+    buckets the predicated producer read: a base or W off 16 bytes)."""
     dev = qs.device
     if not qs.is_cuda or any(not d.is_cuda or d.device != dev for d in dbs):
         raise ValueError("bucketed_modmatmul_cuda needs every operand on "
@@ -36,9 +41,10 @@ def bucketed_modmatmul_cuda(dbs: Sequence[torch.Tensor], qs: torch.Tensor
             raise ValueError(f"sub-DBs must be (m_b, {w}) uint8, got "
                              f"{tuple(d.shape)} {d.dtype}")
     qs = qs.contiguous()
-    # the word-wide loads need 4-byte aligned rows when W % 4 == 0
-    dbs = [d if d.is_contiguous() and d.data_ptr() % 4 == 0
-           else d.clone(memory_format=torch.contiguous_format) for d in dbs]
+    dbs = [d.contiguous() for d in dbs]     # rows W bytes apart
+    n_stacked, bno, b_pad = ref.limb_plan(c)
+    planes = torch.empty((n_b * 4 * b_pad, -(-w // 16) * 16),
+                         dtype=torch.uint8, device=dev)
     heights = [int(d.shape[0]) for d in dbs]
     row_off = [0]
     for h in heights:
@@ -46,19 +52,35 @@ def bucketed_modmatmul_cuda(dbs: Sequence[torch.Tensor], qs: torch.Tensor
     out = torch.empty((row_off[-1], c), dtype=torch.int32, device=dev)
     views = [out[row_off[b]:row_off[b + 1]] for b in range(n_b)]
     if row_off[-1] == 0 or c == 0:
-        return views                      # an empty grid is no launch
+        return views, planes, 0             # an empty grid is no launch
     lib = _build.library("bucketed_modmatmul")
-    tile = int(lib.bucketed_modmatmul_tile_rows())
+    tile, n_ct = int(lib.bucketed_modmatmul_tile_rows()), b_pad // bno
     tile_off = [0]
     for h in heights:
-        tile_off.append(tile_off[-1] + -(-h // tile))
+        tile_off.append(tile_off[-1] + -(-h // tile) * n_ct)
+    info = torch.tensor([[d.data_ptr(), h, row_off[b], tile_off[b]]
+                         for b, (d, h) in enumerate(zip(dbs, heights))],
+                        dtype=torch.int64)
+    host = torch.empty(n_b * int(lib.bucketed_modmatmul_group_bytes()),
+                       dtype=torch.uint8, pin_memory=True)
+    predicated = lib.bucketed_modmatmul_groups(host.data_ptr(),
+                                               info.data_ptr(), n_b, w)
+    if predicated < 0:
+        _build.check(predicated, "bucketed_modmatmul groups")
     # from pinned memory, asynchronously: the pass waits on nothing queued
-    table = torch.tensor([d.data_ptr() for d in dbs] + row_off + tile_off,
-                         dtype=torch.int64).pin_memory().to(dev,
-                                                            non_blocking=True)
-    code = lib.bucketed_modmatmul_u8(table.data_ptr(), n_b, qs.data_ptr(),
-                                     out.data_ptr(), tile_off[-1], w, c,
-                                     _build.stream_ptr(dev))
+    groups = host.to(dev, non_blocking=True)
+    code = lib.bucketed_modmatmul_u8(
+        groups.data_ptr(), n_b, int(predicated == 0), qs.data_ptr(),
+        planes.data_ptr(), out.data_ptr(), row_off[-1], tile_off[-1], w, c,
+        n_stacked, _build.stream_ptr(dev))
     _build.LAUNCHES["bucketed_modmatmul"] += 1
     _build.check(code, "bucketed_modmatmul")
-    return views
+    return views, planes, predicated
+
+
+def bucketed_modmatmul_cuda(dbs: Sequence[torch.Tensor], qs: torch.Tensor
+                            ) -> list[torch.Tensor]:
+    """Launch the kernel once: dbs B (m_b, W) uint8, qs (B, W, C) int32-held
+    u32, all on one CUDA device → B (m_b, C) int32-held u32 tensors (views
+    of one (Σ m_b, C) buffer)."""
+    return grouped_product(dbs, qs)[0]

@@ -98,9 +98,9 @@ def bucketed_modmatmul(dbs: Sequence[torch.Tensor], qs: torch.Tensor, *,
          queries) per bucket.
     Returns B int32-held u32 tensors, (m_b,) or (m_b, C).
 
-    On a card this is ONE launch of the grouped CUDA kernel over every
-    bucket's own height (the JAX package's Pallas form pads the buckets to
-    the tallest and stacks them); on the CPU, `ref.bucketed_modmatmul_ref`.
+    On a card this is ONE pass of the u8 limb tile over every bucket's own
+    height (the JAX package's Pallas form pads the buckets to the tallest
+    and stacks them); on the CPU, `ref.bucketed_modmatmul_ref`.
     """
     if qs.dtype != torch.int32:
         raise TypeError(f"qs must be int32-held u32, got {qs.dtype}")
@@ -127,8 +127,9 @@ def delta_gemm(new_cols: torch.Tensor, old_cols: torch.Tensor,
     """Sparse hint delta ΔH = (new − old)·A_J, exact mod 2^32.
 
     The live-index hot path (`PIRServer.stage_delta`).  new_cols/old_cols:
-    (m, J) uint8; a_j: (J, k) int32-held u32 → (m, k) int32-held u32.  The
-    CUDA kernel forms the difference in registers and runs one product.
+    (m, J) uint8; a_j: (J, k) int32-held u32 → (m, k) int32-held u32.  On a
+    card, one product on the u8 limb tile: ``[new | old] · [A_J ; −A_J]``
+    (the TPU's two limb products, subtracted, in one pass).
     """
     if new_cols.dtype != torch.uint8 or old_cols.dtype != torch.uint8:
         raise TypeError(f"new/old columns must be uint8, got "

@@ -161,6 +161,75 @@ def delta_gemm_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,
     return modmatmul_ref(diff, a_j)
 
 
+def delta_layout(j: int, two_maps: bool = False) -> tuple[int, int]:
+    """(split, n) of `delta_gemm`'s contraction on the limb tile: old's
+    first byte and the contraction's bytes.  Packed: old right after new
+    (split = J), n = 16 ceil(2J/16).  Two maps (the kernel reads new and old
+    in place, J % 16 == 0): old from the first 128-byte stage past new,
+    split = 128 ceil(J/128), n = split + J."""
+    if two_maps:
+        split = -(-j // 128) * 128
+        return split, split + j
+    return j, -(-2 * j // 16) * 16
+
+
+def delta_pack(new_cols: torch.Tensor, old_cols: torch.Tensor, *,
+               two_maps: bool = False) -> torch.Tensor:
+    """The delta product's u8 left operand (m, n): new at bytes [0, J), old
+    at [split, split + J), zero elsewhere (`delta_layout`).  Packed, it is
+    what the kernel's pack writes; with two maps, what its two tensor maps
+    read."""
+    m, j = new_cols.shape
+    split, n = delta_layout(j, two_maps)
+    out = torch.zeros((m, n), dtype=torch.uint8, device=new_cols.device)
+    out[:, :j] = new_cols
+    out[:, split:split + j] = old_cols
+    return out
+
+
+def delta_right(a_j: torch.Tensor, *, two_maps: bool = False) -> torch.Tensor:
+    """The delta product's right operand (n, k) int32-held u32: A_J at rows
+    [0, J), (0 − A_J) mod 2^32 at [split, split + J), zero elsewhere."""
+    j, k = a_j.shape
+    split, n = delta_layout(j, two_maps)
+    out = torch.zeros((n, k), dtype=torch.int64, device=a_j.device)
+    out[:j] = as_i64(a_j)
+    out[split:split + j] = (-as_i64(a_j)) & MASK
+    return wrap_i32(out)
+
+
+def delta_gemm_limbs_ref(new_cols: torch.Tensor, old_cols: torch.Tensor,
+                         a_j: torch.Tensor, *, two_maps: bool = False
+                         ) -> torch.Tensor:
+    """``ΔH = (new − old) @ a_j mod 2^32`` the way `delta_gemm` computes it:
+    ``[new | old] · [A_J ; −A_J]`` as one product, `delta_pack` times the
+    `limb_planes` of `delta_right` on the limb tile's arithmetic.
+    new_cols, old_cols: (m, J) uint8; a_j: (J, k) int32-held u32 → (m, k)
+    int32-held u32."""
+    return _chunked_limb_product(
+        delta_pack(new_cols, old_cols, two_maps=two_maps),
+        limb_planes(delta_right(a_j, two_maps=two_maps)), a_j.shape[1])
+
+
+def bucketed_planes(qs: torch.Tensor) -> torch.Tensor:
+    """Every bucket's `limb_planes` stacked as `bucketed_modmatmul`'s prep
+    writes them: (B · 4 b_pad, W16) uint8, bucket b's planes from row
+    b · 4 b_pad.  qs: (B, W, C) int32-held u32."""
+    return torch.cat([limb_planes(q) for q in qs])
+
+
+def bucketed_modmatmul_limbs_ref(dbs, qs: torch.Tensor) -> list[torch.Tensor]:
+    """Per-bucket ``dbs[b] @ qs[b] mod 2^32`` the way `bucketed_modmatmul`
+    computes it: each bucket on the limb tile's arithmetic, its planes taken
+    from the stacked `bucketed_planes` scratch.  dbs: B (m_b, W) uint8; qs:
+    (B, W, C) int32-held u32 → B (m_b, C) int32-held u32 tensors."""
+    n_b, _, c = qs.shape
+    rows = 4 * limb_plan(c)[2]
+    planes = bucketed_planes(qs) if n_b else None
+    return [_chunked_limb_product(d, planes[b * rows:(b + 1) * rows], c)
+            for b, d in enumerate(dbs)]
+
+
 def bucketed_modmatmul_ref(dbs, qs: torch.Tensor) -> list[torch.Tensor]:
     """Per-bucket exact ``dbs[b] @ qs[b] mod 2^32``: `modmatmul_ref` on each
     bucket.  dbs: B (m_b, W) uint8; qs: (B, W, C) int32-held u32 → B

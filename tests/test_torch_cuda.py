@@ -407,3 +407,132 @@ def test_kmeans_assign_ties_across_centroid_tiles(cuda, d):
     want_a, want_d = ops.kmeans_assign(x, c0, impl="cuda")
     assert int(got_a.max()) < 100
     assert torch.equal(got_a, want_a) and torch.equal(got_d, want_d)
+
+
+# delta_gemm on the limb tile: [new | old] . [A_J ; -A_J], packed or read in
+# place by two tensor maps
+@pytest.mark.parametrize("m,j,k,pack", [
+    (9, 1, 70, True), (130, 51, 1024, True), (130, 64, 1024, True),
+    (130, 64, 1024, False), (130, 65, 70, True), (257, 256, 1024, True),
+    (257, 256, 1024, False), (3, 16_400, 5, True), (3, 16_400, 5, False),
+])
+def test_delta_gemm_limb_tile_bitwise(cuda, m, j, k, pack):
+    """J off and on 16 and past one 128-byte stage, 2J past one 32,768-byte
+    contraction chunk, both layouts of the left operand (two maps only
+    where J % 16 == 0): one launch, bitwise against the plain version and
+    the int64 emulation."""
+    from repro_torch.kernels import delta_gemm
+    rng = np.random.default_rng(m + 3 * j + k)
+    new, old, a_j = _u8(rng, (m, j), cuda), _u8(rng, (m, j), cuda), \
+        _u32(rng, (j, k), cuda)
+    ops.reset_launch_counts()
+    got, _, packed = delta_gemm.delta_product(new, old, a_j, pack=pack)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["delta_gemm"] == 1
+    assert (packed is not None) == pack
+    assert torch.equal(got, ref.delta_gemm_ref(new, old, a_j))
+    # the int64 emulation on the CPU (torch has no int64 matmul on CUDA)
+    emu = ref.delta_gemm_limbs_ref(new.cpu(), old.cpu(), a_j.cpu(),
+                                   two_maps=not pack)
+    assert torch.equal(got.cpu(), emu)
+
+
+@pytest.mark.parametrize("new_val,old_val", [(255, 0), (0, 255)])
+@pytest.mark.parametrize("j", [64, 51])
+def test_delta_gemm_limb_tile_special_values(cuda, new_val, old_val, j):
+    """new - old = +-255 against A_J of 0, 1, 0x80000000, 0xFFFFFFFF."""
+    specials = torch.tensor([0, 1, -2**31, -1], dtype=torch.int32,
+                            device=cuda)
+    a_j = specials.repeat(j, 3)
+    new = torch.full((300, j), new_val, dtype=torch.uint8, device=cuda)
+    old = torch.full((300, j), old_val, dtype=torch.uint8, device=cuda)
+    got = ops.delta_gemm(new, old, a_j, impl="cuda")
+    assert torch.equal(got, ref.delta_gemm_ref(new, old, a_j))
+
+
+@pytest.mark.parametrize("j,k,pack", [(1, 1, True), (51, 70, True),
+                                      (64, 1024, True), (64, 1024, False),
+                                      (256, 33, False)])
+def test_delta_gemm_prep_planes_and_pack_match_ref(cuda, j, k, pack):
+    """The prep's planes of [A_J ; -A_J] equal `ref.limb_planes` of
+    `ref.delta_right`, and the pack (in the launch and alone) equals
+    `ref.delta_pack`."""
+    from repro_torch.kernels import delta_gemm
+    rng = np.random.default_rng(j + k)
+    new, old, a_j = _u8(rng, (5, j), cuda), _u8(rng, (5, j), cuda), \
+        _u32(rng, (j, k), cuda)
+    _, planes, packed = delta_gemm.delta_product(new, old, a_j, pack=pack)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.limb_planes(
+        ref.delta_right(a_j, two_maps=not pack)))
+    if pack:
+        assert torch.equal(packed, ref.delta_pack(new, old))
+        assert torch.equal(delta_gemm.pack_cuda(new, old), packed)
+
+
+# bucketed_modmatmul on the limb tile: every bucket in one pass
+@pytest.mark.parametrize("heights", [(1, 130, 257), (64, 0, 200)])
+@pytest.mark.parametrize("w", [128, 255, 256])
+@pytest.mark.parametrize("c", [1, 16, 17])
+def test_bucketed_limb_tile_bitwise(cuda, heights, w, c):
+    """Heights off 128 with a one-row and an empty bucket, W on and off 16
+    bytes (TMA or the predicated producer), C = 1, 16, 17: one launch,
+    bitwise against the plain version and the int64 emulation."""
+    from repro_torch.kernels import bucketed_modmatmul
+    rng = np.random.default_rng(sum(heights) + w + c)
+    dbs = [_u8(rng, (m, w), cuda) for m in heights]
+    qs = _u32(rng, (len(heights), w, c), cuda)
+    ops.reset_launch_counts()
+    got, _, predicated = bucketed_modmatmul.grouped_product(dbs, qs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bucketed_modmatmul"] == 1
+    busy = sum(1 for m in heights if m)
+    assert predicated == (0 if w % 16 == 0 else busy)
+    emus = ref.bucketed_modmatmul_limbs_ref([d.cpu() for d in dbs], qs.cpu())
+    for g, want, emu in zip(got, ref.bucketed_modmatmul_ref(dbs, qs), emus):
+        assert torch.equal(g, want) and torch.equal(g.cpu(), emu)
+
+
+@pytest.mark.parametrize("w,c", [(33, 1), (256, 16), (128, 65)])
+def test_bucketed_prep_planes_match_ref(cuda, w, c):
+    """The prep's stacked scratch equals `ref.bucketed_planes`."""
+    from repro_torch.kernels import bucketed_modmatmul
+    rng = np.random.default_rng(w + c)
+    dbs = [_u8(rng, (m, w), cuda) for m in (3, 1, 140)]
+    qs = _u32(rng, (3, w, c), cuda)
+    _, planes, _ = bucketed_modmatmul.grouped_product(dbs, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.bucketed_planes(qs))
+
+
+def test_bucketed_twenty_four_buckets(cuda):
+    """K's shape of pass: 24 buckets of width 128 with unequal heights."""
+    rng = np.random.default_rng(24)
+    heights = [int(h) for h in rng.integers(1, 3000, 24)]
+    dbs = [_u8(rng, (m, 128), cuda) for m in heights]
+    qs = _u32(rng, (24, 128, 16), cuda)
+    ops.reset_launch_counts()
+    got = ops.bucketed_modmatmul(dbs, qs, impl="cuda")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bucketed_modmatmul"] == 1
+    for g, want in zip(got, ref.bucketed_modmatmul_ref(dbs, qs)):
+        assert torch.equal(g, want)
+
+
+def test_bucketed_base_off_16_bytes_takes_predicated_producer(cuda):
+    """A sub-DB whose base lies 4 bytes off 16-byte alignment (a view into
+    a larger buffer) is read by the predicated producer beside buckets
+    read by TMA, bitwise."""
+    from repro_torch.kernels import bucketed_modmatmul
+    rng = np.random.default_rng(4)
+    w = 256
+    whole = _u8(rng, (300 * w + 4,), cuda)
+    off = whole[4:4 + 300 * w].view(300, w)
+    assert off.data_ptr() % 16 == 4
+    dbs = [_u8(rng, (129, w), cuda), off, _u8(rng, (7, w), cuda)]
+    qs = _u32(rng, (3, w, 16), cuda)
+    got, _, predicated = bucketed_modmatmul.grouped_product(dbs, qs)
+    torch.cuda.synchronize()
+    assert predicated == 1
+    for g, want in zip(got, ref.bucketed_modmatmul_ref(dbs, qs)):
+        assert torch.equal(g, want)
