@@ -113,7 +113,8 @@ from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
 from repro_torch.kernels import (_build, bucketed_modmatmul,  # noqa: E402
                                  delta_gemm, modmatmul, ops, ref)
-from repro_torch.serve import PIRServeLoop  # noqa: E402
+from repro_torch.fleet import faults as faults_lib  # noqa: E402
+from repro_torch.serve import PIRServeLoop, PipelinedServeLoop  # noqa: E402
 from repro_torch.update import (HintCache, LiveIndex, journal,  # noqa: E402
                                 planner)
 
@@ -128,7 +129,7 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             rebuild_clusters=64, s_requests=64, s_batch=16, p_kappa=4,
             p_requests=32, p_batch=16, k_rows=1_000_000, k_dim=64,
             k_kappa=8, k_requests=32, k_batch=16, yard_rows=262_144,
-            p_hint_rows=902_656, k_hint_rows=336_128)
+            p_hint_rows=902_656, k_hint_rows=336_128, window_ticks=4)
 #: p_hint_rows, k_hint_rows: the tallest bucket hint of phases P and K at
 #: these widths (902,656 and 336,128 rows), for the kernel phase's
 #: one-column u32 cases, which run before those phases
@@ -137,7 +138,9 @@ TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
             s_requests=8, s_batch=4, p_kappa=4, p_requests=8, p_batch=4,
             k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4,
-            yard_rows=64, p_hint_rows=300, k_hint_rows=100)
+            yard_rows=64, p_hint_rows=300, k_hint_rows=100, window_ticks=2)
+#: full ticks served before the traced window of phases S and SP
+WINDOW_PRIME = 2
 #: the partition seed phase P's buckets are drawn from (enable_batch's default)
 P_SEED = 101
 #: shares of the clusters phase U's two delta epochs touch (update_bench's
@@ -184,8 +187,10 @@ PATH_KERNELS = {
     "U": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign", "delta_gemm",
           "add_delta"),
     "S": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta"),
+    "SP": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta"),
     "P": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta",
           "bucketed_modmatmul"),
+    "PP": ("modmatmul_u32", "delta_gemm", "add_delta", "bucketed_modmatmul"),
     "K": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta",
           "bucketed_modmatmul"),
     "C": ("modmatmul_u8", "modmatmul_u32"),
@@ -893,10 +898,26 @@ def _rebuild_epoch(card, cfg):
 def phase_s(card, cfg, live, corp):
     """The sync serve loop over phase U's live index, a mutation batch
     committed every 2 ticks."""
-    per_tick = cfg["s_batch"] // 2
-    n_ticks = cfg["s_requests"] // per_tick
     loop = PIRServeLoop(live, max_batch=cfg["s_batch"], deadline_ms=1e9,
                         seed=9)
+    return serve_script(card, cfg, loop, live, corp, "S")
+
+
+def _signature(loop, epoch0=0):
+    """Every response in order: rid, epoch (from ``epoch0``), retries,
+    failure, and its top-k doc ids and texts."""
+    return [(r.rid, r.epoch - epoch0, r.retries, r.failed,
+             tuple((i, t) for i, _, t in r.top)) for r in loop.responses]
+
+
+def serve_script(card, cfg, loop, live, corp, phase):
+    """Phase S's requests and mutation batches through ``loop``, then one
+    traced tick and a traced window of ``window_ticks`` full ticks (after
+    `WINDOW_PRIME` untraced full ticks, so a pipelined engine of depth 2
+    retires one batch a tick in it).  Returns (the phase line, the
+    responses' signature)."""
+    per_tick = cfg["s_batch"] // 2
+    n_ticks = cfg["s_requests"] // per_tick
     rng = np.random.default_rng(12)
     emb_dim = corp.embeddings.shape[1]
     ins_text = b"served insert " * 4
@@ -930,8 +951,8 @@ def phase_s(card, cfg, live, corp):
         loop.tick()
         if new_id is not None:
             if live.journal.pending() or loop.mutations:
-                raise AssertionError("phase S: a mutation batch did not "
-                                     "commit on its tick")
+                raise AssertionError(f"phase {phase}: a mutation batch did "
+                                     "not commit on its tick")
             inserted_at[new_id] = live.epoch
     loop.drain()
     # one traced tick: a full batch served, no commit
@@ -943,33 +964,177 @@ def phase_s(card, cfg, live, corp):
     wall, busy, top, _ = traced_ms(card, lambda: loop.tick(force=True))
     loop.drain()
 
+    def submit_batch():
+        nonlocal offered
+        for j in range(cfg["s_batch"]):
+            d = anchors[j % len(anchors)]
+            loop.submit(offered, live._docs[d][1], top_k=10)
+            anchor_of[offered] = d
+            offered += 1
+
+    def window():
+        for _ in range(cfg["window_ticks"]):
+            submit_batch()
+            loop.tick()
+
+    depth = getattr(loop, "depth", 0)
+    plan_syncs, sync_sites = None, []
+    for i in range(WINDOW_PRIME):         # prime a pipeline of depth ≤ 2
+        submit_batch()
+        if i == 0 and depth:
+            plan_syncs, sync_sites = plan_sync_count(card, loop.tick)
+        else:
+            loop.tick()
+    w_wall, w_busy, _, _ = traced_ms(card, window)
+    loop.drain()
+
     served = [r for r in loop.responses if not r.failed]
     if len(served) + loop.failed_requests != offered:
-        raise AssertionError(f"phase S: {len(served)} served + "
+        raise AssertionError(f"phase {phase}: {len(served)} served + "
                              f"{loop.failed_requests} failed != {offered}")
     for r in served:
         d = anchor_of[r.rid]
         if d not in [i for i, _, _ in r.top]:
-            raise AssertionError(f"phase S: request {r.rid} (doc {d}) not "
-                                 f"retrieved at epoch {r.epoch}")
+            raise AssertionError(f"phase {phase}: request {r.rid} (doc {d}) "
+                                 f"not retrieved at epoch {r.epoch}")
         if r.epoch < inserted_at.get(d, 0):
-            raise AssertionError(f"phase S: doc {d} served before its epoch")
+            raise AssertionError(f"phase {phase}: doc {d} served before its "
+                                 f"epoch")
     if not torch.equal(live.system.server.setup(), live.system.hint):
-        raise AssertionError("phase S: patched hint != setup()")
+        raise AssertionError(f"phase {phase}: patched hint != setup()")
     timings = list({id(r.timing): r.timing for r in served}.values())
 
     def med_ms(attr):
         return 1e3 * float(np.median([getattr(t, attr) for t in timings]))
 
-    return dict(
-        phase="S", offered=offered, served=len(served),
+    line = dict(
+        phase=phase, engine=loop.ENGINE, offered=offered, served=len(served),
         failed=loop.failed_requests, stale_retries=loop.stale_retries,
         epochs=live.epoch, batches=len(timings),
         inserted_anchors=len(inserted_at), encode_ms_median=med_ms("encode_s"),
         gemm_ms_median=med_ms("gemm_s"), decode_ms_median=med_ms("decode_s"),
         traced_tick_wall_ms=wall, device_kernel_ms=busy,
         device_idle_share=None if busy is None else 1.0 - busy / wall,
-        top_kernels_ms=top)
+        top_kernels_ms=top, window_ticks=cfg["window_ticks"],
+        window_wall_ms=w_wall, window_device_kernel_ms=w_busy,
+        window_idle_share=None if w_busy is None else 1.0 - w_busy / w_wall)
+    if depth:
+        line.update(depth=depth, plan_sync_warnings=plan_syncs,
+                    plan_sync_sites=sync_sites)
+    return line, _signature(loop)
+
+
+def plan_sync_count(card, tick):
+    """Run ``tick`` (a pipelined tick that plans and dispatches, retiring
+    nothing) under ``torch.cuda.set_sync_debug_mode("warn")``: (the number
+    of synchronizing calls it made, where each was made from); (None, [])
+    off the card."""
+    if card.dev.type != "cuda":
+        tick()
+        return None, []
+    import traceback
+    import warnings
+    sites, armed = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if armed and "synchroniz" in str(message):
+            stack = [f"{pathlib.Path(f.filename).name}:{f.lineno}"
+                     for f in traceback.extract_stack()[:-1]
+                     if "warnings" not in f.filename]
+            sites.append(" < ".join(reversed(stack[-4:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        armed.append(True)                # the call above warns of itself
+        try:
+            tick()
+        finally:
+            armed.clear()
+            torch.cuda.set_sync_debug_mode(0)
+    return len(sites), sites
+
+
+def phase_sp(card, cfg, live, corp, line_s, sig_s):
+    """Phase S's script through `PipelinedServeLoop(depth=2)` on a clone of
+    the index S started from: the same responses, epochs and retries as
+    S."""
+    loop = PipelinedServeLoop(live, max_batch=cfg["s_batch"], deadline_ms=1e9,
+                              seed=9, depth=2)
+    line, sig = serve_script(card, cfg, loop, live, corp, "SP")
+    if sig != sig_s:
+        bad = next(i for i, (a, b) in enumerate(zip(sig, sig_s)) if a != b) \
+            if len(sig) == len(sig_s) else "count"
+        raise AssertionError(f"phase SP: responses differ from S's ({bad})")
+    for key in ("offered", "served", "failed", "stale_retries", "epochs"):
+        if line[key] != line_s[key]:
+            raise AssertionError(f"phase SP: {key} {line[key]} != S's "
+                                 f"{line_s[key]}")
+    sh = loop._shadow
+    line.update(responses_equal_s=True, commits=sh.commits,
+                stage_seconds=sh.stage_seconds, swap_seconds=sh.swap_seconds,
+                s_window_idle_share=line_s["window_idle_share"],
+                s_device_idle_share=line_s["device_idle_share"],
+                s_encode_ms_median=line_s["encode_ms_median"],
+                s_gemm_ms_median=line_s["gemm_ms_median"],
+                s_decode_ms_median=line_s["decode_ms_median"])
+    return line
+
+
+def phase_sp_faults(card, cfg, live, corp):
+    """One answer drop and one answer delay on the pipelined engine: the
+    same responses as an unfaulted run, one retry charged per dropped
+    request, none per delayed one."""
+    n, n_batches = cfg["s_batch"], 4
+    docs = [d for d, _ in _stable_docs(live, corp, np.random.default_rng(21),
+                                       n)]
+
+    def run(inj):
+        loop = PipelinedServeLoop(live, max_batch=n, deadline_ms=1e9, seed=23,
+                                  depth=2, faults=inj)
+        for b in range(n_batches):
+            for j, d in enumerate(docs):
+                loop.submit(b * n + j, live._docs[d][1], top_k=10)
+            loop.tick()
+        loop.drain()
+        live.faults = live.epochs.faults = None
+        return loop
+
+    def sig(loop):
+        return sorted((r.rid, r.epoch, r.failed,
+                       tuple((i, t) for i, _, t in r.top))
+                      for r in loop.responses)
+
+    clean = run(None)
+    plan = faults_lib.FaultPlan((
+        faults_lib.FaultEvent(faults_lib.SITE_ANSWER_DROP, at=0),
+        faults_lib.FaultEvent(faults_lib.SITE_ANSWER_DELAY, at=1,
+                              delay_s=0.02)))
+    inj = plan.compile()
+    t0 = time.perf_counter()
+    faulted = run(inj)
+    faulted_s = time.perf_counter() - t0
+    metrics = faulted.obs.metrics_dict()
+    charged = (sum(r.retries for r in faulted.responses)
+               - sum(r.retries for r in clean.responses))
+    if sig(faulted) != sig(clean):
+        raise AssertionError("phase SP faults: responses differ from the "
+                             "unfaulted run's")
+    if len(inj.fired) != 2 or charged != n or \
+            metrics.get("fleet.answer_drops") != n or \
+            metrics.get("fleet.answer_delays") != n:
+        raise AssertionError(f"phase SP faults: fired {len(inj.fired)}, "
+                             f"charged {charged}, {metrics}")
+    for r in faulted.responses:
+        if docs[r.rid % n] not in [i for i, _, _ in r.top]:
+            raise AssertionError(f"phase SP faults: request {r.rid} missed")
+    return dict(phase="SP faults", offered=n * n_batches,
+                served=sum(not r.failed for r in faulted.responses),
+                dropped=metrics["fleet.answer_drops"],
+                delayed=metrics["fleet.answer_delays"], delay_s=0.02,
+                retries_charged=charged, faulted_run_seconds=faulted_s,
+                responses_equal=True)
 
 
 # --------------------------------------------------------------------------
@@ -1186,6 +1351,147 @@ def p_decode_check(card, live, cfg):
                 columns_equal_sub_dbs=True)
 
 
+def phase_pp(card, cfg, live, corp, line_mem):
+    """P's multi-probe requests and one routed one-cluster commit through
+    the sync loop, then the same script through `PipelinedServeLoop(depth=2)`
+    from the same state (each run ends by committing the mover's old text
+    back): equal responses, epochs and retries, and after
+    the pipelined commit every bucket hint equals setup()."""
+    kappa, n = cfg["p_kappa"], cfg["p_batch"]
+    pool = _stable_docs(live, corp, np.random.default_rng(24), n + 1)
+    anchors, (mover, cluster) = [d for d, _ in pool[:n]], pool[n]
+    original = live._docs[mover][0]
+    revised = _revised(original, b"pp:")
+    emb = live._docs[mover][1]
+
+    def script(loop):
+        e0, offered, expect = live.epoch, 0, {}
+
+        def batch(extra=None):
+            nonlocal offered
+            for d in anchors + ([extra] if extra is not None else []):
+                loop.submit(offered, live._docs[d][1], top_k=10,
+                            multi_probe=kappa)
+                expect[offered] = d
+                offered += 1
+            loop.tick()
+
+        batch()
+        loop.submit_mutation(journal.replace(mover, revised, emb))
+        batch()
+        batch(mover)
+        batch()
+        loop.drain()
+        if live.epoch != e0 + 1 or live._docs[mover][0] != revised:
+            raise AssertionError("phase PP: the routed commit did not land")
+        checked = _bucket_checks(card, live, "phase PP")
+        served = [r for r in loop.responses if not r.failed]
+        if len(served) + loop.failed_requests != offered:
+            raise AssertionError("phase PP: served + failed != offered")
+        for r in served:
+            hit = [t for i, _, t in r.top if i == expect[r.rid]]
+            if not hit or (expect[r.rid] == mover and hit != [revised]):
+                raise AssertionError(f"phase PP: request {r.rid} missed")
+        timings = list({id(r.timing): r.timing for r in served}.values())
+        sig = _signature(loop, e0)
+        loop.submit_mutation(journal.replace(mover, original, emb))
+        loop.tick()
+        loop.drain()
+        return sig, timings, offered, checked
+
+    def med_ms(timings, attr):
+        return 1e3 * float(np.median([getattr(t, attr) for t in timings]))
+
+    sync = PIRServeLoop(live, max_batch=n, deadline_ms=1e9, seed=25)
+    sig_s, t_s, offered, _ = script(sync)
+    if card.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pipe = PipelinedServeLoop(live, max_batch=n, deadline_ms=1e9, seed=25,
+                              depth=2)
+    sig_p, t_p, _, checked = script(pipe)
+    if sig_p != sig_s:
+        raise AssertionError("phase PP: responses differ from the sync loop's")
+    return dict(
+        phase="PP", engine="pipelined", depth=2, kappa=kappa,
+        offered=offered, served=sum(not r[3] for r in sig_p),
+        failed=pipe.failed_requests, stale_retries=pipe.stale_retries,
+        responses_equal_sync=True, batches=len(t_p), cluster=cluster,
+        touched_buckets=list(live.system.batch.partition.buckets_of(cluster)),
+        buckets_checked=checked, bucket_hints_equal_setup=True,
+        sub_dbs_equal_host=True, commits=pipe._shadow.commits,
+        stage_seconds=pipe._shadow.stage_seconds,
+        swap_seconds=pipe._shadow.swap_seconds,
+        encode_ms_median=med_ms(t_p, "encode_s"),
+        gemm_ms_median=med_ms(t_p, "gemm_s"),
+        decode_ms_median=med_ms(t_p, "decode_s"),
+        sync_encode_ms_median=med_ms(t_s, "encode_s"),
+        sync_gemm_ms_median=med_ms(t_s, "gemm_s"),
+        sync_decode_ms_median=med_ms(t_s, "decode_s"),
+        reckoned_peak_bytes=line_mem["reckoned_peak_bytes"],
+        max_memory_allocated=(torch.cuda.max_memory_allocated()
+                              if card.dev.type == "cuda" else None))
+
+
+def p_stacked(card, cfg, live):
+    """One batch of P's clients formed and decoded both ways from one seed:
+    the per-client loop (`query` and `recover` per client: a GEMV per bucket
+    per client, an H_b·s per placed bucket per client) and the stacked pass
+    (`draw`, one A_b·S_b and one H_b·S_b per bucket).  Ciphertexts and
+    columns must be bitwise equal, the columns equal to the sub-DBs';
+    launches and ms of each way."""
+    bp = live.system.batch
+    n, kappa = cfg["p_batch"], cfg["p_kappa"]
+    rng = np.random.default_rng(26)
+    probes = [rng.choice(bp.partition.n_clusters, kappa,
+                         replace=False).tolist() for _ in range(n)]
+
+    def timed(fn):
+        before = ops.launch_counts()
+        card.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        card.sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        return out, ms, ops.launch_counts()["modmatmul_u32"] \
+            - before["modmatmul_u32"]
+
+    gen = torch.Generator(device=card.dev).manual_seed(27)
+    per, enc_loop_ms, enc_loop = timed(
+        lambda: [bp.client.query(gen, pr) for pr in probes])
+    qs_loop = torch.stack([q for q, _ in per], dim=2)
+    answers = bp.server.answer_batch(qs_loop)
+    cols_loop, dec_loop_ms, dec_loop = timed(
+        lambda: [bp.client.recover([a[:, c] for a in answers], st)
+                 for c, (_, st) in enumerate(per)])
+    gen = torch.Generator(device=card.dev).manual_seed(27)
+
+    (qs, states), enc_ms, enc = timed(lambda: bp.client.encrypt(
+        [bp.client.draw(gen, pr) for pr in probes]))
+    decoded, dec_ms, dec = timed(lambda: bp.client.decode(answers, states))
+    cols = decoded.columns()              # the stream has passed its copy
+    if not torch.equal(qs, qs_loop):
+        raise AssertionError("phase P: stacked ciphertexts != the loop's")
+    for c, (_, st) in enumerate(per):
+        if cols[c].keys() != cols_loop[c].keys():
+            raise AssertionError("phase P: stacked decode placed otherwise")
+        for b, cl in st.placement.items():
+            want = bp.server.sub_dbs[b][:, bp.partition.position(b, cl)]
+            if not (np.array_equal(cols[c][cl], cols_loop[c][cl])
+                    and np.array_equal(cols[c][cl], want.cpu().numpy())):
+                raise AssertionError(f"phase P: cluster {cl} decodes wrong "
+                                     f"from bucket {b}")
+    return dict(phase="P stacked", clients=n, n_buckets=bp.partition.n_buckets,
+                placed=sum(len(st.placement) for _, st in per),
+                loop_encode_u32_launches=enc_loop,
+                loop_decode_u32_launches=dec_loop,
+                stacked_encode_u32_launches=enc,
+                stacked_decode_u32_launches=dec,
+                loop_encode_ms=enc_loop_ms, loop_decode_ms=dec_loop_ms,
+                stacked_encode_ms=enc_ms, stacked_decode_ms=dec_ms,
+                ciphertexts_equal=True, columns_equal_loop=True,
+                columns_equal_sub_dbs=True)
+
+
 def allocated(card):
     """Card bytes allocated now (None in a rehearsal)."""
     if card.dev.type != "cuda":
@@ -1258,6 +1564,15 @@ def phase_k(card, cfg):
     asks[last] = replaced
     loop.submit_lookup(last, replaced)
     loop.drain()
+    # one full batch alone in its tick: its modmatmul_u32 launches
+    for _ in range(cfg["k_batch"]):
+        rid = len(asks)
+        asks[rid] = ((rng.zipf(1.2, size=kappa) - 1) % v).tolist()
+        loop.submit_lookup(rid, asks[rid])
+    before = ops.launch_counts()["modmatmul_u32"]
+    loop.tick(force=True)
+    u32_per_batch = ops.launch_counts()["modmatmul_u32"] - before
+    loop.drain()
     served = [r for r in loop.responses if not r.failed]
     if len(served) + loop.failed_requests != len(asks):
         raise AssertionError("phase K: served + failed != offered")
@@ -1285,6 +1600,7 @@ def phase_k(card, cfg):
         gemm_ms_median=1e3 * float(np.median([t.gemm_s for t in timings])),
         decode_ms_median=1e3 * float(np.median([t.decode_s
                                                 for t in timings])),
+        u32_launches_per_batch=u32_per_batch,
         commit_seconds=commit_s, replaced_rows=len(replaced),
         patch_bytes=patch.wire_bytes, buckets_checked=checked,
         rows_equal_table=True, replaced_rows_equal=True,
@@ -1764,11 +2080,24 @@ def main(argv=None) -> int:
     emit(phase="launches U", **paths["U"])
     u_epochs = [ln for ln in lines_u if ln["phase"] == "U"]
 
+    t0 = time.perf_counter()
+    live_sp = live.clone()                # SP replays S from S's start
+    clone_s = time.perf_counter() - t0
     ops.reset_launch_counts()
-    line_s = phase_s(card, cfg, live, corp)
+    line_s, sig_s = phase_s(card, cfg, live, corp)
     paths["S"] = ops.launch_counts()
     emit(**line_s)
     emit(phase="launches S", **paths["S"])
+
+    ops.reset_launch_counts()
+    line_sp = phase_sp(card, cfg, live_sp, corp, line_s, sig_s)
+    paths["SP"] = ops.launch_counts()
+    line_sp["clone_seconds"] = clone_s
+    emit(**line_sp)
+    emit(phase="launches SP", **paths["SP"])
+    emit(**phase_sp_faults(card, cfg, live_sp, corp))
+    del live_sp
+    gc.collect()                          # P needs the clone's card memory
 
     ops.reset_launch_counts()
     lines_p = phase_p(card, cfg, live, corp)
@@ -1783,6 +2112,13 @@ def main(argv=None) -> int:
                              f"bucketed launches for {line_p['batches']} "
                              f"served batches")
     emit(**p_decode_check(card, live, cfg))
+
+    ops.reset_launch_counts()
+    line_pp = phase_pp(card, cfg, live, corp, lines_p[0])
+    paths["PP"] = ops.launch_counts()
+    emit(**line_pp)
+    emit(phase="launches PP", **paths["PP"])
+    emit(**p_stacked(card, cfg, live))
     # U's, S's and P's live index holds no reference cycle: dropping it
     # returns its card memory with the cycle collector off
     gc.disable()

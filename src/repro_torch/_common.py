@@ -34,6 +34,31 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``, queued without waiting on the stream
+    (a pinned, non-blocking copy on the card; on the CPU the tensor shares
+    memory with ``a``).  A blocking copy would wait for every product
+    already queued on the stream."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:      # e.g. a view of a JAX array
+        a = a.copy()
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` queued on the current stream (pinned, no wait):
+    read it only once the stream has passed this point.  On the CPU, ``t``
+    itself."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 def as_i64(x: torch.Tensor) -> torch.Tensor:
     """u32 values held as int32 bits (or u8) → int64 in [0, 2^32)."""
     if x.dtype == torch.uint8:

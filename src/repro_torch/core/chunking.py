@@ -15,15 +15,23 @@ m = max serialized cluster size rounded up to ``chunk_size``.
 The live index re-packs only the clusters a mutation batch touches
 (`rebuild_columns`); `ColumnOverflowError` is its signal that a column no
 longer fits in m rows and the index must be rebuilt.
+
+The client parses a decrypted column with `parse_column`: one pass over
+the records' text lengths, then every header and quantized embedding
+gathered and dequantized in array operations.  `deserialize_docs` gives
+the same (doc_id, embedding, text) triples as the JAX package's, bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Mapping, Sequence
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 
 _HDR = 16  # doc_id + text_len + scale + offset
+_U32 = struct.Struct("<I")
 
 #: (doc_id, embedding f32 (d,), text bytes) — the canonical document triple.
 DocTriple = tuple[int, np.ndarray, bytes]
@@ -82,25 +90,63 @@ def serialize_doc(doc_id: int, emb: np.ndarray, text: bytes) -> bytes:
     return hdr + q.tobytes() + text
 
 
+@dataclasses.dataclass(frozen=True)
+class ParsedColumn:
+    """One decrypted column's documents, in record order.  Texts stay in
+    the column's bytes until asked for (`text`, `texts`)."""
+    ids: np.ndarray               # (D,) int64 doc ids
+    embs: np.ndarray              # (D, emb_dim) f32 dequantized embeddings
+    buf: bytes                    # the column
+    text_at: np.ndarray           # (D,) int64 offset of each text in buf
+    text_len: np.ndarray          # (D,) int64
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def text(self, i: int) -> bytes:
+        at = int(self.text_at[i])
+        return self.buf[at:at + int(self.text_len[i])]
+
+    @property
+    def texts(self) -> list[bytes]:
+        return [self.buf[a:a + n] for a, n in
+                zip(self.text_at.tolist(), self.text_len.tolist())]
+
+
+def parse_column(col: np.ndarray, emb_dim: int) -> ParsedColumn:
+    """Parse one decrypted column: one pass over the text lengths finds the
+    records, then the headers and embeddings are gathered and dequantized
+    in array operations (the same f32 operations per element as
+    `dequantize_embedding`, so the values are bitwise its)."""
+    buf = np.ascontiguousarray(col, np.uint8).tobytes()
+    (n_docs,) = _U32.unpack_from(buf, 0)
+    starts = [0] * n_docs
+    step = _HDR + emb_dim
+    unpack = _U32.unpack_from
+    ofs = 4
+    for i in range(n_docs):
+        starts[i] = ofs
+        ofs += step + unpack(buf, ofs + 4)[0]
+    st = np.asarray(starts, np.int64)
+    if n_docs:
+        # each record's header and embedding: one row gather of a window
+        rec = sliding_window_view(np.frombuffer(buf, np.uint8), step)[st]
+    else:
+        rec = np.zeros((0, step), np.uint8)
+    hdr = np.ascontiguousarray(rec[:, :_HDR])
+    words, floats = hdr.view("<u4"), hdr.view("<f4")
+    embs = (rec[:, _HDR:].astype(np.float32) * floats[:, 2:3]
+            + floats[:, 3:4])
+    return ParsedColumn(ids=words[:, 0].astype(np.int64), embs=embs,
+                        buf=buf, text_at=st + step,
+                        text_len=words[:, 1].astype(np.int64))
+
+
 def deserialize_docs(col: np.ndarray, emb_dim: int
                      ) -> list[tuple[int, np.ndarray, bytes]]:
     """Parse one decrypted column back into (doc_id, embedding, text)."""
-    buf = col.tobytes()
-    n_docs = int(np.frombuffer(buf[:4], np.uint32)[0])
-    out = []
-    ofs = 4
-    for _ in range(n_docs):
-        doc_id = int(np.frombuffer(buf[ofs:ofs + 4], np.uint32)[0])
-        tlen = int(np.frombuffer(buf[ofs + 4:ofs + 8], np.uint32)[0])
-        scale = float(np.frombuffer(buf[ofs + 8:ofs + 12], np.float32)[0])
-        off = float(np.frombuffer(buf[ofs + 12:ofs + 16], np.float32)[0])
-        ofs += _HDR
-        q = np.frombuffer(buf[ofs:ofs + emb_dim], np.uint8)
-        ofs += emb_dim
-        text = buf[ofs:ofs + tlen]
-        ofs += tlen
-        out.append((doc_id, dequantize_embedding(q, scale, off), text))
-    return out
+    p = parse_column(col, emb_dim)
+    return [(int(i), e, t) for i, e, t in zip(p.ids, p.embs, p.texts)]
 
 
 def record_bytes(emb_dim: int, text_len: int) -> int:

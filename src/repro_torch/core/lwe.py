@@ -96,15 +96,34 @@ def keygen(gen: torch.Generator, params: LWEParams, batch: int | None = None
            ) -> torch.Tensor:
     """Uniform secret(s): (k,) or (k, batch) int32-held u32."""
     shape = (params.k,) if batch is None else (params.k, batch)
-    return wrap_i32(torch.randint(0, Q, shape, dtype=torch.int64,
-                                  generator=gen, device=gen.device))
+    return wrap_i32(uniform_bits(gen, shape))
 
 
 def sample_error(gen: torch.Generator, shape, sigma: float) -> torch.Tensor:
     """Rounded-gaussian error mod q (negatives wrap), int32-held u32."""
-    e = torch.round(sigma * torch.randn(shape, dtype=torch.float32,
-                                        generator=gen, device=gen.device))
-    return e.to(torch.int32)
+    return round_error(standard_normal(gen, shape), sigma)
+
+
+# The two draws and their finishing steps apart: the finishing steps are
+# elementwise, so draws taken one by one can be finished together, in one
+# launch, to the same bits as `keygen` and `sample_error` give.
+
+def uniform_bits(gen: torch.Generator, shape) -> torch.Tensor:
+    """`keygen`'s draw: int64 uniform in [0, 2^32); `wrap_i32` finishes it."""
+    return torch.randint(0, Q, shape, dtype=torch.int64, generator=gen,
+                         device=gen.device)
+
+
+def standard_normal(gen: torch.Generator, shape) -> torch.Tensor:
+    """`sample_error`'s draw: f32 standard normal; `round_error` finishes
+    it."""
+    return torch.randn(shape, dtype=torch.float32, generator=gen,
+                       device=gen.device)
+
+
+def round_error(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """round(sigma · x) as int32-held u32 (negatives wrap)."""
+    return torch.round(sigma * x).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,17 @@ results.  Two server shapes: the legacy path (one one-hot per probe, one
 GEMM over the whole DB) and, after `enable_batch()`, batch-PIR (cuckoo
 buckets, one bucketed pass for all probes); `build_keyed` serves embedding
 rows by id through batch-PIR.  No mesh.
+
+A serving batch (`query_batch_async`, `lookup_batch_async`) queues its
+encryption, the answer, the decode and the decoded bytes' copy to the host
+on the device stream without waiting on it; the client's centroid ranking,
+which needs its result on the host, runs on a stream of its own.  So a
+pipelined engine's plan never waits for the products of batches already in
+flight.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -20,28 +28,60 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch._common import resolve_device, sync
+from repro_torch._common import resolve_device, sync, to_device, to_host_async
 from repro_torch.core import chunking, clustering, pir, rerank, threefry
 
 
 @dataclasses.dataclass
 class InflightBatch:
-    """A dispatched serving batch: answer and decode enqueued on the device.
+    """A dispatched serving batch: answer, decode and the decoded bytes'
+    host copy enqueued on the device.
 
-    `complete()` copies the decoded columns to the host, parses and
-    re-ranks them, and returns exactly what `query_batch` would have.
+    ``event`` is recorded on the stream when the batch is built, at the end
+    of its dispatch; `wait()` blocks on it alone, not on batches queued
+    after it.  `complete()` waits, then parses and re-ranks the host bytes
+    and returns exactly what `query_batch` would have.
     """
     _complete: Callable[[], list]
     pending: tuple = ()            # device tensors the dispatch produced
     done: bool = False
+    event: torch.cuda.Event | None = None
+
+    def __post_init__(self):
+        dev = next((t.device for t in self.pending
+                    if isinstance(t, torch.Tensor) and t.is_cuda), None)
+        if dev is not None and self.event is None:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(dev))
+
+    def wait(self) -> None:
+        """Block until this batch's device work (and host copy) is done."""
+        if self.event is not None:
+            self.event.synchronize()
 
     def complete(self) -> list:
-        """Decode + re-rank; same return value as `query_batch`."""
+        """Wait for this batch, then parse + re-rank; same return value as
+        `query_batch`."""
         if self.done:
             raise RuntimeError("InflightBatch.complete() called twice")
+        self.wait()
         out = self._complete()
         self.done = True
         return out
+
+
+def _client_stream(device: torch.device):
+    """Context running the client's centroid ranking on a stream of torch's
+    pool, not the serving stream (on the card; nothing on the CPU).  The
+    ranking reads only the queries and the public centroids, both host
+    arrays uploaded inside it, so it needs no ordering against the serving
+    stream, and its copy back waits for it alone.  (Waiting on the serving
+    stream instead would make that copy wait for every batch in flight.)
+    `_cluster_order` asserts that the centroids are a host array: a card
+    tensor written on the serving stream would need an event here."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(torch.cuda.Stream(device))
 
 
 # Independent fold_in streams off the ONE public build seed (see the twin).
@@ -324,44 +364,57 @@ class PirRagSystem:
     def lookup_batch_async(self, ids_batch, *,
                            generator: torch.Generator | None = None
                            ) -> InflightBatch:
-        """Plan + dispatch a keyed serving batch; decode deferred.
+        """Plan + dispatch a keyed serving batch; row extraction deferred.
 
         Per-client placement failures fall back to that client's legacy
-        lookup; everyone else stacks along the column axis of the shared
-        bucketed product.  The per-bucket hints and configs are snapshotted
-        at plan time, so `complete()` decodes against this batch's epoch
-        even if a live commit lands in between.
+        lookup, drawn at its place in the client order; everyone else
+        shares one A_b·S_b, the bucketed product and one H_b·S_b per bucket.
+        The decode is queued here, against the hints of this batch's epoch,
+        so a later commit cannot reach it.
         """
         from repro_torch.batchpir import PlacementError
+        from repro_torch.batchpir.client import KeyedQueryState
         layout, bp = self._require_keyed()
         gen = self._generator(generator)
-        per_client, fallback = [], {}
+        draws, wanted, live, fallback = [], [], [], {}
         for i, ids in enumerate(ids_batch):
             try:
-                per_client.append(bp.client.query_rows(gen, layout, ids))
+                drawn, ids_i = bp.client.draw_rows(gen, layout, ids)
             except PlacementError:
+                # drawn here, at its place in the client order
                 fallback[i] = self._lookup_legacy(ids, gen,
                                                   time.perf_counter())[0]
-                per_client.append(None)
-        live = [i for i, pc in enumerate(per_client) if pc is not None]
-        answers: list = []
-        if live:
-            stacked = torch.stack([per_client[i][0] for i in live], dim=2)
-            answers = bp.server.answer_batch(stacked)   # per bucket (m_b, C)
-        hints = list(bp.client.hints)
-        cfgs = list(bp.client.cfgs)
+                continue
+            draws.append(drawn)
+            wanted.append(ids_i)
+            live.append(i)
+        answers, states, decoded = self._stacked_pass(bp, draws)
 
         def complete():
-            out: list[np.ndarray | None] = [None] * len(per_client)
-            for c_idx, i in enumerate(live):
-                ans_i = [a[:, c_idx] for a in answers]
-                out[i] = bp.client.recover_rows(ans_i, per_client[i][1],
-                                                hints=hints, cfgs=cfgs)
+            out: list[np.ndarray | None] = [None] * len(ids_batch)
+            if decoded is not None:
+                for i, ids_i, st, cols in zip(live, wanted, states,
+                                              decoded.columns()):
+                    out[i] = bp.client.rows(cols, KeyedQueryState(
+                        ids=ids_i, layout=layout, base=st))
             for i, rows in fallback.items():
                 out[i] = rows
             return out
 
         return InflightBatch(_complete=complete, pending=tuple(answers))
+
+    @staticmethod
+    def _stacked_pass(bp, draws: list):
+        """Queue one batch-PIR pass for C drawn clients: one A_b·S_b per
+        bucket, the bucketed answer, one H_b·S_b per bucket and the host
+        copy of the decoded columns → (per-bucket answers (m_b, C), the
+        clients' states, `batchpir.DecodedBatch`); ([], [], None) for no
+        clients."""
+        if not draws:
+            return [], [], None
+        qs, states = bp.client.encrypt(draws)
+        answers = bp.server.answer_batch(qs)
+        return answers, states, bp.client.decode(answers, states)
 
     # -- online -------------------------------------------------------------
 
@@ -376,10 +429,13 @@ class PirRagSystem:
     def _cluster_order(self, query_embs: np.ndarray, probes: int
                        ) -> np.ndarray:
         """(B, P) nearest public centroids per query (client-side)."""
-        d2 = clustering.pairwise_sqdist(
-            torch.as_tensor(np.asarray(query_embs, np.float32)).to(self.device),
-            torch.tensor(self.centroids, device=self.device))
-        return np.argsort(d2.cpu().numpy(), axis=1)[:, :probes]
+        assert isinstance(self.centroids, np.ndarray), \
+            "the client stream reads centroids uploaded from the host"
+        with _client_stream(self.device):
+            d2 = clustering.pairwise_sqdist(
+                to_device(np.asarray(query_embs, np.float32), self.device),
+                to_device(self.centroids, self.device)).cpu().numpy()
+        return np.argsort(d2, axis=1)[:, :probes]
 
     def query(self, query_emb: np.ndarray, *, top_k: int = 10,
               multi_probe: int = 1, generator: torch.Generator | None = None,
@@ -429,10 +485,10 @@ class PirRagSystem:
         t2 = time.perf_counter()
 
         cols = client.recover_batch(ans, secrets).cpu().numpy()
-        docs = []
-        for j in range(len(order)):
-            docs.extend(chunking.deserialize_docs(cols[:, j], self.db.emb_dim))
-        top = rerank.rerank(np.asarray(query_emb, np.float32), docs, top_k)
+        top = rerank.rerank_columns(
+            np.asarray(query_emb, np.float32),
+            [chunking.parse_column(cols[:, j], self.db.emb_dim)
+             for j in range(len(order))], top_k)
         t3 = time.perf_counter()
 
         p = len(order)
@@ -457,11 +513,10 @@ class PirRagSystem:
         sync(self.device)
         t2 = time.perf_counter()
         cols = bp.client.recover(ans, state)
-        docs = []
-        for c in order:
-            docs.extend(chunking.deserialize_docs(cols[int(c)],
-                                                  self.db.emb_dim))
-        top = rerank.rerank(np.asarray(query_emb, np.float32), docs, top_k)
+        top = rerank.rerank_columns(
+            np.asarray(query_emb, np.float32),
+            [chunking.parse_column(cols[int(c)], self.db.emb_dim)
+             for c in order], top_k)
         t3 = time.perf_counter()
         acc = bp.client.accounting(state)
         stats = QueryStats(
@@ -494,9 +549,10 @@ class PirRagSystem:
                           ) -> InflightBatch:
         """Plan + dispatch a serving batch; decode deferred to `complete()`.
 
-        Encryption, the answer GEMM and the batched recover are all enqueued
-        on the device stream here; ``pending`` holds the decoded (m, B·P)
-        u8 columns.  `query_batch` is ``query_batch_async(...).complete()``.
+        Encryption, the answer GEMM, the batched recover and the decoded
+        columns' host copy are all enqueued on the device stream here;
+        ``pending`` holds the decoded (m, B·P) u8 columns.  `query_batch` is
+        ``query_batch_async(...).complete()``.
         """
         gen = self._generator(generator)
         n_req = len(query_embs)
@@ -515,18 +571,15 @@ class PirRagSystem:
         qs, secrets = client.query_batch(gen, orders.reshape(-1).tolist())
         ans = self.server.answer(qs)                          # (m, B·P)
         cols = client.recover_batch(ans, secrets)
+        # one contiguous row a column on the host, so parsing reads it as is
+        host = to_host_async(cols.T.contiguous())
 
         def complete():
-            cols_np = cols.cpu().numpy()
-            out = []
-            for b in range(n_req):
-                docs = []
-                for j in range(p):
-                    docs.extend(chunking.deserialize_docs(
-                        cols_np[:, b * p + j], emb_dim))
-                out.append(rerank.rerank(
-                    np.asarray(query_embs[b], np.float32), docs, top_ks[b]))
-            return out
+            rows = host.numpy()
+            return [rerank.rerank_columns(
+                np.asarray(query_embs[b], np.float32),
+                [chunking.parse_column(rows[b * p + j], emb_dim)
+                 for j in range(p)], top_ks[b]) for b in range(n_req)]
 
         return InflightBatch(_complete=complete, pending=(cols,))
 
@@ -535,48 +588,39 @@ class PirRagSystem:
                                         gen: torch.Generator
                                         ) -> InflightBatch:
         """Multi-probe serving batch: C clients × B buckets, one bucketed
-        product.
+        product, one A_b·S_b and one H_b·S_b per bucket.
 
         Per-client placement failures fall back to that client's legacy
-        multi-probe query; everyone else shares the bucketed pass.  The
-        per-bucket hints and configs, which a later commit replaces in the
-        shared lists, are snapshotted at plan time so `complete()` decodes
-        against this batch's epoch.
+        multi-probe query, drawn at its place in the client order; everyone
+        else shares the stacked pass.  The decode is queued here, against
+        the hints of this batch's epoch, so a later commit cannot reach it.
         """
         from repro_torch.batchpir import PlacementError
         bp = self.batch
         emb_dim = self.db.emb_dim
         orders = self._cluster_order(query_embs, multi_probe)
-        per_client, fallback = [], {}
+        draws, live, fallback = [], [], {}
         for i in range(len(query_embs)):
             try:
-                per_client.append(bp.client.query(
-                    gen, [int(c) for c in orders[i]]))
+                draws.append(bp.client.draw(gen,
+                                            [int(c) for c in orders[i]]))
             except PlacementError:
+                # drawn here, at its place in the client order
                 fallback[i] = self.query(query_embs[i], top_k=top_ks[i],
                                          multi_probe=multi_probe,
                                          generator=gen, mode="legacy")[0]
-                per_client.append(None)
-        live = [i for i, pc in enumerate(per_client) if pc is not None]
-        answers: list = []
-        if live:
-            stacked = torch.stack([per_client[i][0] for i in live], dim=2)
-            answers = bp.server.answer_batch(stacked)   # per bucket (m_b, C)
-        hints = list(bp.client.hints)
-        cfgs = list(bp.client.cfgs)
+                continue
+            live.append(i)
+        answers, _, decoded = self._stacked_pass(bp, draws)
 
         def complete():
             out: list[list | None] = [None] * len(query_embs)
-            for c_idx, i in enumerate(live):
-                ans_i = [a[:, c_idx] for a in answers]
-                cols = bp.client.recover(ans_i, per_client[i][1],
-                                         hints=hints, cfgs=cfgs)
-                docs = []
-                for cl in orders[i]:
-                    docs.extend(chunking.deserialize_docs(cols[int(cl)],
-                                                          emb_dim))
-                out[i] = rerank.rerank(np.asarray(query_embs[i], np.float32),
-                                       docs, top_ks[i])
+            if decoded is not None:
+                for i, cols in zip(live, decoded.columns()):
+                    out[i] = rerank.rerank_columns(
+                        np.asarray(query_embs[i], np.float32),
+                        [chunking.parse_column(cols[int(cl)], emb_dim)
+                         for cl in orders[i]], top_ks[i])
             for i, top in fallback.items():
                 out[i] = top
             return out

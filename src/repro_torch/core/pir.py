@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch._common import to_device
 from repro_torch.core import lwe
 from repro_torch.kernels import ops
 
@@ -183,17 +185,17 @@ class PIRClient:
         and errors come from ``gen`` unless given (tests inject the JAX
         package's).
         """
-        idx = torch.as_tensor(list(indices), dtype=torch.int64,
-                              device=self.hint.device)
-        b = idx.numel()
+        idx = np.asarray([int(i) for i in indices], np.int64)
+        b = len(idx)
         p = self.cfg.params
         if secrets is None:
             secrets = lwe.keygen(gen, p, b)
         if errors is None:
             errors = lwe.sample_error(gen, (self.cfg.n, b), p.sigma)
-        onehot = torch.zeros((self.cfg.n, b), dtype=torch.int32,
-                             device=self.hint.device)
-        onehot[idx, torch.arange(b, device=idx.device)] = 1
+        # built on the host and copied without waiting on the stream
+        onehot_np = np.zeros((self.cfg.n, b), np.int32)
+        onehot_np[idx, np.arange(b)] = 1
+        onehot = to_device(onehot_np, self.hint.device)
         qs = lwe.encrypt_vector(secrets, self._a_mat, onehot, p.delta, errors,
                                 impl=self.cfg.impl)
         return qs, secrets

@@ -1,10 +1,17 @@
 """Client-side finalization: exact re-rank of the decrypted cluster.
 
-Twin of ``repro/core/rerank.py``; host-side numpy.
+Twin of ``repro/core/rerank.py``; host-side numpy.  `rerank_columns`
+scores parsed columns (`chunking.ParsedColumn`) from one stacked matrix;
+it returns what the twin's ``rerank`` returns for the same documents in
+the same order.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+
+from repro_torch.core.chunking import ParsedColumn
 
 
 def cosine_scores(query_emb: np.ndarray, doc_embs: np.ndarray) -> np.ndarray:
@@ -14,13 +21,19 @@ def cosine_scores(query_emb: np.ndarray, doc_embs: np.ndarray) -> np.ndarray:
     return dn @ qn
 
 
-def rerank(query_emb: np.ndarray,
-           docs: list[tuple[int, np.ndarray, bytes]],
-           top_k: int) -> list[tuple[int, float, bytes]]:
-    """Top-k (doc_id, score, text) among the fetched cluster's documents."""
-    if not docs:
+def rerank_columns(query_emb: np.ndarray, cols: Sequence[ParsedColumn],
+                   top_k: int) -> list[tuple[int, float, bytes]]:
+    """Top-k (doc_id, score, text) among the documents of ``cols``,
+    concatenated in order."""
+    cols = [c for c in cols if len(c)]
+    if not cols:
         return []
-    embs = np.stack([d[1] for d in docs])
+    ids = np.concatenate([c.ids for c in cols])
+    embs = (cols[0].embs if len(cols) == 1
+            else np.concatenate([c.embs for c in cols]))
+    first = np.cumsum([0] + [len(c) for c in cols])
     scores = cosine_scores(query_emb, embs)
     order = np.argsort(-scores)[:top_k]
-    return [(docs[i][0], float(scores[i]), docs[i][2]) for i in order]
+    col_of = np.searchsorted(first, order, side="right") - 1
+    return [(int(ids[i]), float(scores[i]), cols[c].text(i - first[c]))
+            for i, c in zip(order, col_of)]

@@ -1,6 +1,6 @@
-"""Serving-fleet policy shared by the serve loop and the live index.
+"""Serving-fleet policy shared by the serve loops and the live index.
 
-`retry` (the bounded retry budget, a copy of the JAX package's) and, from
-`faults`, only the commit-failure exception the live index and the serve
-loop name.  Fault injection itself comes with the fleet slice.
+`retry` (the bounded retry budget) and `faults` (the seeded fault plan, its
+injector and the commit-failure exception), both copies of the JAX
+package's.  Replica groups and recovery come with the fleet slice.
 """

@@ -1,20 +1,37 @@
-"""The synchronous PIR serve loop: deadline batching and epoch admission
-(twin of ``repro/serve/engine.py``'s `PIRServeLoop`).
+"""PIR serve engines: deadline batching, epoch admission, pipelining
+(twin of ``repro/serve/engine.py``).
 
-Each tick commits pending mutations, cuts a batch, queues its encryption,
-answer and decode on the device, waits for them and re-ranks on the host
-before returning.  Requests formed against a superseded epoch are rejected
-and re-queued under a bounded retry budget.  Spans time every stage and
-`BatchTiming` is built from their boundaries, so the Chrome-trace export
-under a fake clock is byte-identical to the JAX package's loop.
+Two engines share one policy core (batching, epoch admission, bounded
+retries, answer-fault injection, the per-batch LWE stream):
+
+`PIRServeLoop` — the synchronous loop.  Each tick commits pending
+mutations, cuts a batch, queues its encryption, answer and decode on the
+device, waits for them and re-ranks on the host before returning.
+
+`PipelinedServeLoop` — plan, dispatch and complete overlap across batches:
+
+    tick T:   shadow commit (stage, then publish: `serve.epochs`)
+              plan batch N      (cut, admit, encode)          host
+              dispatch batch N  (answer + decode enqueued)    device
+              complete batch N-depth (copy back, re-rank)     host
+
+While batch N's products run on the device, the host parses and re-ranks
+batch N−depth.  Each in-flight batch is waited for on its own CUDA event,
+recorded where its dispatch ends, never on the whole stream.
+
+Responses, epochs and retry counts are the same in both engines: pipelining
+moves work in time, never across an epoch boundary.  Requests formed
+against a superseded epoch are rejected and re-queued under a bounded retry
+budget.  Spans time every stage and `BatchTiming` is built from their
+boundaries, so the Chrome-trace export under a fake clock is byte-identical
+to the JAX package's engines.
 
 The per-batch LWE randomness comes from one `torch.Generator` seeded from
-``seed`` (the JAX loop splits a threefry key per batch); decryption is
+``seed`` (the JAX engines split a threefry key per batch); decryption is
 exact, so responses do not depend on it.  A tick serves one answer product
 per request kind: single-probe queries share the column-stacked GEMM, each
 multi_probe value shares one bucketed batch-PIR pass, and keyed lookups
-share the keyed bucketed pass.  The pipelined engine, shadow commits, the
-generation stage and answer-fault injection are not ported yet.
+share the keyed bucketed pass.  The generation stage is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,9 +44,11 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.fleet.faults import InjectedCommitFault
+from repro_torch.fleet.faults import (SITE_ANSWER_DELAY, SITE_ANSWER_DROP,
+                                      InjectedCommitFault)
 from repro_torch.fleet.retry import DEFAULT_POLICY, RetryPolicy
 from repro_torch.obs import Obs
+from repro_torch.serve.epochs import ShadowCommitter
 
 
 @dataclasses.dataclass
@@ -137,7 +156,8 @@ class PIRServeLoop:
                  deadline_ms: float = 20.0,
                  clock: Callable[[], float] = time.perf_counter,
                  live=None, seed: int = 0, obs: Obs | None = None,
-                 retry: RetryPolicy | None = DEFAULT_POLICY):
+                 retry: RetryPolicy | None = DEFAULT_POLICY,
+                 faults=None):
         self.live = live if live is not None else (
             system if hasattr(system, "epochs") else None)
         self.system = system if self.live is None else self.live.system
@@ -159,7 +179,17 @@ class PIRServeLoop:
         # retry=None restores unbounded requeueing.
         self.retry = retry
         self.failed_requests = 0
+        # Fault injection (`fleet.faults.FaultInjector`): guards the answer
+        # drop and delay sites after admission, and arms the wrapped live
+        # index's commit-stage and hint-chain sites with the SAME injector
+        # (one invocation-counter space per run).  None keeps the tick
+        # fault-free with no extra clock reads.
+        self.faults = faults
+        if faults is not None and self.live is not None:
+            self.live.faults = faults
+            self.live.epochs.faults = faults
         self._backoff: list = []      # (ready_t, seq, Request) min-heap
+        self._delayed: list = []      # (ready_t, seq, Request) min-heap
         self._seq = 0                 # heap tiebreak = admission order
         self._tick_no = 0
         # Commit-failure retry state: an injected stage failure leaves the
@@ -304,13 +334,49 @@ class PIRServeLoop:
                 t_arrival=r.t_arrival, failed=True))
 
     def _release_held(self, now: float):
-        """Move matured backoff requests back to the queue head."""
+        """Move matured backoff and delayed requests back to the queue head.
+
+        Heap pops against the tick's existing ``now`` read: with empty heaps
+        this is two truthiness checks, so the response stream stays the
+        same.  Maturity is respected during drain too (the clock advances
+        there, so held requests always mature).
+        """
         due = []
-        while self._backoff and self._backoff[0][0] <= now:
-            due.append(heapq.heappop(self._backoff))
+        for heap in (self._delayed, self._backoff):
+            while heap and heap[0][0] <= now:
+                due.append(heapq.heappop(heap))
         if due:
             due.sort(key=lambda e: e[1])   # original admission order
             self.batcher.requeue_front([r for _, _, r in due])
+
+    def _inject_answer_faults(self, fresh: list[Request], cur: int,
+                              now: float) -> list[Request]:
+        """Guard the answer drop and delay sites on the just-cut batch.
+
+        A DROP loses the whole batch before dispatch: each request is
+        charged one retry and re-queued (or terminally failed).  A DELAY
+        holds the batch in the delayed heap for the event's ``delay_s`` of
+        loop-clock time: late, not lost, so no retry is charged.
+        """
+        if self.faults is None or not fresh:
+            return fresh
+        if self.faults.fire(SITE_ANSWER_DROP):
+            self.obs.counter("fleet.answer_drops").inc(len(fresh))
+            for r in fresh:
+                r.retries += 1
+            kept, give_up = self._split_budget(fresh, now)
+            self._requeue_retries(kept, now)
+            self._fail(give_up, cur, now)
+            return []
+        delay = self.faults.fire(SITE_ANSWER_DELAY)
+        if delay:
+            self.obs.counter("fleet.answer_delays").inc(len(fresh))
+            ready = now + max(ev.delay_s for ev in delay)
+            for r in fresh:
+                self._seq += 1
+                heapq.heappush(self._delayed, (ready, self._seq, r))
+            return []
+        return fresh
 
     def _probe_groups(self, fresh: list[Request]
                       ) -> list[tuple[tuple[str, int], list[Request]]]:
@@ -370,6 +436,7 @@ class PIRServeLoop:
                 return 0
             cur = self.epoch
             fresh = self._admit(self.batcher.cut(), cur, now)
+            fresh = self._inject_answer_faults(fresh, cur, now)
             if not fresh:
                 return 0
             tick_sp.set(batch=len(fresh), epoch=cur)
@@ -409,8 +476,125 @@ class PIRServeLoop:
                 req.rid, top, t_done, len(reqs), epoch=epoch,
                 retries=req.retries, t_arrival=req.t_arrival, timing=timing))
 
+    def _pending_work(self) -> bool:
+        return bool(self.batcher.queue or self.mutations or self._backoff
+                    or self._delayed or self._commit_retry)
+
     def drain(self):
         """Serve everything still queued, force-flushing partial batches."""
-        while (self.batcher.queue or self.mutations or self._backoff
-               or self._commit_retry):
+        while self._pending_work():
             self.tick(force=True)
+
+
+class PipelinedServeLoop(PIRServeLoop):
+    """Plan/dispatch/complete pipelined serving over the same policy core.
+
+    ``depth`` bounds the number of dispatched-but-undecoded batches: the
+    tick that dispatches batch N completes batch N−depth, so the device has
+    products queued while the host parses and re-ranks an older batch.
+
+    Mutation commits go through `ShadowCommitter`: patches are staged into
+    fresh buffers (DB and sub-DB columns written in place at publish) and
+    published at the same tick boundary the
+    synchronous loop commits on, which is why responses, epochs and retry
+    counts stay the same.
+    """
+
+    ENGINE = "pipelined"
+
+    def __init__(self, system, *, depth: int = 2, **kwargs):
+        super().__init__(system, **kwargs)
+        self.depth = max(1, int(depth))
+        self._inflight: deque = deque()
+        self._shadow = (ShadowCommitter(self.live)
+                        if self.live is not None else None)
+
+    @property
+    def inflight(self) -> int:
+        """Batches dispatched on the device but not yet completed."""
+        return len(self._inflight)
+
+    def set_depth(self, depth: int):
+        """Adjust the in-flight bound; a shrink retires the excess at the
+        next tick, a grow lets more dispatches accumulate."""
+        self.depth = max(1, int(depth))
+
+    def _commit_mutations(self):
+        if self._shadow is None or not (self.mutations or self._commit_retry):
+            return None
+        if self._tick_no < self._commit_not_before:
+            return None                  # backing off after a failed commit
+        try:
+            patch = self._shadow.commit(self.mutations)
+        except InjectedCommitFault:
+            self._commit_failed()
+            return None
+        self._commit_retry = False
+        self._commit_attempts = 0
+        return patch
+
+    def tick(self, force: bool = False) -> int:
+        """Plan + dispatch one batch if ready; complete anything past depth.
+
+        Returns the number of requests DISPATCHED (their responses land
+        when the pipeline retires them).  The plan span's boundaries seed
+        each in-flight batch's `BatchTiming`; its gemm and complete spans
+        are opened by the later tick that retires it, so a complete span is
+        parented by a younger tick than its plan span.
+        """
+        self._tick_no += 1
+        with self.obs.span("serve.tick", engine=self.ENGINE) as tick_sp:
+            self.obs.gauge("serve.queue_depth").set(self.batcher.depth)
+            self._commit_mutations()
+            now = self.clock()
+            self._release_held(now)
+            if (not self.batcher.ready(now)
+                    and not (force and self.batcher.queue)):
+                # idle tick: nothing to dispatch, so retire everything in
+                # flight — responses must not wait behind the depth bound
+                self._retire(0)
+                return 0
+            cur = self.epoch
+            fresh = self._admit(self.batcher.cut(), cur, now)
+            fresh = self._inject_answer_faults(fresh, cur, now)
+            if not fresh:
+                return 0
+            tick_sp.set(batch=len(fresh), epoch=cur)
+
+            system = self._serving_system()
+            gen = self._generator(system.device)
+            for kind, reqs in self._probe_groups(fresh):
+                with self.obs.span("serve.plan", batch=len(reqs),
+                                   kind=kind[0],
+                                   multi_probe=kind[1]) as sp_plan:
+                    infl = self._plan_group(system, kind, reqs, gen)
+                self._inflight.append((reqs, cur, infl, sp_plan.t0,
+                                       sp_plan.dur))
+            self.obs.gauge("serve.inflight").set(len(self._inflight))
+            self._retire(self.depth)
+            return len(fresh)
+
+    def _retire(self, limit: int):
+        """Complete the oldest in-flight batches beyond ``limit``.
+
+        The gemm component is the RESIDUAL device wait at retire time, on
+        the batch's own event: at steady state its products ran while the
+        host worked on other batches, so a small gemm_s is the pipeline
+        doing its job (the sync engine reports the full device time).
+        """
+        while len(self._inflight) > limit:
+            reqs, epoch, infl, t_plan, encode_s = self._inflight.popleft()
+            with self.obs.span("serve.gemm", batch=len(reqs)) as sp_gemm:
+                infl.wait()
+            with self.obs.span("serve.complete", batch=len(reqs)) as sp_done:
+                results = infl.complete()
+            self._append(reqs, results, epoch, sp_done.t1, BatchTiming(
+                t_plan=t_plan, encode_s=encode_s, gemm_s=sp_gemm.dur,
+                decode_s=sp_done.dur))
+
+    def drain(self):
+        """Serve and complete everything: queue, mutations and pipeline."""
+        while self._pending_work():
+            self.tick(force=True)
+        with self.obs.span("serve.drain", engine=self.ENGINE):
+            self._retire(0)

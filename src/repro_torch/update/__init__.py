@@ -10,7 +10,8 @@ download (`HintPatch`) instead of a fresh m×k hint.
     planner.py — mutations → touched clusters + full-rebuild triggers
     epochs.py  — versioned HintPatch wire format, composition, compaction
                  (EpochLog segments), client HintCache
-    routing.py — bucket routing of deltas (batch-PIR not ported: a no-op)
+    routing.py — bucket routing of deltas into the batch-PIR sub-DBs and
+                 bucket hints (a no-op while batch PIR is off)
     live.py    — LiveIndex: plan → column rebuild → ΔH → epoch publish
 """
 from repro_torch.update.epochs import (CorruptPatchError, EpochLog, HintCache,

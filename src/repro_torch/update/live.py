@@ -27,6 +27,7 @@ kmeans++ draws are the port's own.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 import weakref
@@ -189,6 +190,17 @@ class LiveIndex:
         return cls(system, texts, table, max_pad_fraction=max_pad_fraction,
                    compact_every=compact_every,
                    rebuild_kwargs=dict(build_kwargs))
+
+    def clone(self) -> "LiveIndex":
+        """An independent copy that serves and commits on its own: every
+        tensor and the host DB mirror copied, the epoch log's full-fetch hook
+        bound to the copy.  The per-doc maps are copied shallowly: a commit
+        replaces them, never the (text, embedding) entries in them."""
+        memo = {id(self._docs): dict(self._docs),
+                id(self._cluster_of): dict(self._cluster_of)}
+        twin = copy.deepcopy(self, memo)
+        twin.epochs.full_fetch = _weak_hook(twin._full_patch)
+        return twin
 
     def set_obs(self, obs: Obs) -> None:
         """Adopt `obs` (a serve loop's handle) for commit/compaction events."""

@@ -182,3 +182,80 @@ def test_keyed_entry_points_raise_without_a_card():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert "RAISED" in out.stdout
+
+
+def test_serving_modules_import_without_jax():
+    """The pipelined engine, shadow commits, fault plans and the serve CLI
+    import with jax and repro blocked."""
+    code = ("import importlib\n"
+            "for m in ('repro_torch.serve.epochs', 'repro_torch.fleet.faults',"
+            " 'repro_torch.launch', 'repro_torch.launch.serve'):\n"
+            "    importlib.import_module(m)\n"
+            "from repro_torch.serve import PipelinedServeLoop, ShadowCommitter\n"
+            "from repro_torch.fleet.faults import FaultInjector, FaultPlan\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "(m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+            "print('BAD', bad)")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout
+
+
+def test_pipelined_entry_points_raise_without_a_card():
+    code = ("import numpy as np, torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "from repro_torch.core import pipeline\n"
+            "from repro_torch.launch import serve\n"
+            "from repro_torch.serve import PipelinedServeLoop\n"
+            "from repro_torch.update import LiveIndex\n"
+            "e = np.zeros((4, 8), np.float32); t = [b'x'] * 4\n"
+            "for fn in (lambda: PipelinedServeLoop(\n"
+            "               pipeline.PirRagSystem.build(t, e, n_clusters=2)),\n"
+            "           lambda: PipelinedServeLoop(\n"
+            "               LiveIndex.build(t, e, n_clusters=2)),\n"
+            "           lambda: serve.main(['--docs', '40', '--requests', '2',"
+            " '--engine', 'pipelined'])):\n"
+            "    try:\n"
+            "        fn()\n"
+            "    except RuntimeError as err:\n"
+            "        assert 'device' in str(err), err\n"
+            "    else:\n"
+            "        raise SystemExit('ran without a card')\n"
+            "print('RAISED')")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED" in out.stdout
+
+
+def test_chip_smoke_rehearsal_runs_the_pipelined_phases():
+    code = ("import runpy\n"
+            f"sys.argv = [{str(ROOT / 'chip_smoke.py')!r}, '--rehearse']\n"
+            f"runpy.run_path(sys.argv[0], run_name='__main__')")
+    out = _run(code, timeout=300)
+    assert out.returncode == 3, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    for phase in ('"SP"', '"launches SP"', '"SP faults"', '"PP"',
+                  '"launches PP"', '"P stacked"'):
+        assert any(f'"phase": {phase}' in ln for ln in lines), phase
+
+    def line(phase):
+        return next(json.loads(ln) for ln in lines
+                    if f'"phase": "{phase}"' in ln)
+
+    s, sp = line("S"), line("SP")
+    assert sp["engine"] == "pipelined" and sp["responses_equal_s"]
+    for key in ("offered", "served", "stale_retries", "epochs"):
+        assert sp[key] == s[key]
+    assert sp["served"] + sp["failed"] == sp["offered"]
+    u_epoch = max(json.loads(ln)["epoch"] for ln in lines
+                  if '"phase": "U"' in ln)
+    assert sp["commits"] == sp["epochs"] - u_epoch > 0
+    faults = line("SP faults")
+    assert faults["responses_equal"] and faults["dropped"] == \
+        faults["retries_charged"] > 0 and faults["delayed"] > 0
+    pp = line("PP")
+    assert pp["responses_equal_sync"] and pp["bucket_hints_equal_setup"]
+    assert pp["served"] + pp["failed"] == pp["offered"]
+    stacked = line("P stacked")
+    assert stacked["ciphertexts_equal"] and stacked["columns_equal_sub_dbs"]
+    assert "u32_launches_per_batch" in line("K")
