@@ -57,6 +57,28 @@ path at full width and checks what comes out.  The phases, in order:
            f32): `LiveIndex.build_keyed`, lookups through the serve loop's
            `submit_lookup`, one `replace_row` commit; rows equal table[ids]
            bitwise, bucket hints equal setup()
+  G        the paper's Fig. 2 comparison at 700,000 docs (d = 128, 7,000
+           topics, 800-1,600-byte texts, 418 clusters; the most a
+           one-column-per-document PIR admits at p = 256): the content PIR
+           both baselines owe for RAG, then PIR-RAG, Tiptoe-style and
+           graph-PIR built and queried 8 times each (top-10; Tiptoe and
+           graph-PIR then fetch their 10 documents); setup, median query
+           and RAG-ready seconds, bytes and card memory per system.  Gates:
+           Tiptoe's ids equal the plaintext quantized ranking, every
+           decoded graph record equals its DB column, every fetched doc
+           equals the corpus's (text, dequantized embedding), PIR-RAG finds
+           each query's own doc, p = 256 for both baseline PIRs.  After
+           the launch counts, each new shape (content and graph hints and
+           answers, their A·S, Tiptoe's hint and score) is held bitwise
+           against the plain version on sampled rows and timed beside its
+           bound, and 1,000 rows of the k-NN graph are held against a
+           float64 recompute (similarities within 1e-6)
+  Q        the paper's Fig. 3 regime (5,000 docs, d = 384, 333 clusters,
+           12 queries, 3 builds of PIR-RAG and Tiptoe): NDCG@10, P@10,
+           R@50, retrieval and RAG-ready seconds per system; PIR-RAG's
+           RAG-ready time must equal its retrieval time and both baselines
+           must pay a fetch tail; the quality ordering is printed, not
+           gated
   C        the production PIR point (m = 2,097,152, n = 4096, k = 1024,
            q_switch = 2^16): `PIRServer.setup`, `answer` on 64 encrypted
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
@@ -71,8 +93,9 @@ path at full width and checks what comes out.  The phases, in order:
            pack is timed apart at U's shapes, and at J = 256 both layouts
            in turns; K's answer pass beside P's
 
-Launch counts are set to 0 just before each of phases B, U, S, P, K and C
-and read just after it; every kernel of a path must have launched in it.
+Launch counts are set to 0 just before each of phases B, U, S, P, K, G, Q
+and C and read just after it; every kernel of a path must have launched in
+it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
 the device's busy share (in P's traced tick, also the device ms of the
@@ -110,7 +133,10 @@ from repro_torch import batchpir  # noqa: E402
 from repro_torch.batchpir.server import bucket_rows  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
+from repro_torch.core.baselines import common as baseline_common  # noqa: E402
+from repro_torch.core.baselines import graph_pir, tiptoe  # noqa: E402
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
+from repro_torch.data import metrics  # noqa: E402
 from repro_torch.kernels import (_build, bucketed_modmatmul,  # noqa: E402
                                  delta_gemm, modmatmul, ops, ref)
 from repro_torch.fleet import faults as faults_lib  # noqa: E402
@@ -129,16 +155,25 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             rebuild_clusters=64, s_requests=64, s_batch=16, p_kappa=4,
             p_requests=32, p_batch=16, k_rows=1_000_000, k_dim=64,
             k_kappa=8, k_requests=32, k_batch=16, yard_rows=262_144,
-            p_hint_rows=902_656, k_hint_rows=336_128, window_ticks=4)
+            p_hint_rows=902_656, k_hint_rows=336_128, window_ticks=4,
+            g_docs=700_000, g_emb_dim=128, g_topics=7_000,
+            g_text=(800, 1600), g_queries=8, g_sample_rows=64,
+            g_knn_rows=1000, q_docs=5000, q_emb_dim=384, q_text=(64, 256),
+            q_queries=12, q_builds=3)
 #: p_hint_rows, k_hint_rows: the tallest bucket hint of phases P and K at
 #: these widths (902,656 and 336,128 rows), for the kernel phase's
-#: one-column u32 cases, which run before those phases
+#: one-column u32 cases, which run before those phases.  g_docs: 700,000,
+#: under the 716,800 columns above which a one-column-per-document PIR's
+#: plaintext modulus drops below 256 (the baselines refuse that).
 TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             c_rows=1000, c_cols=256, c_batch=8, slice_rows=64,
             plain_rows=256, rebuild_docs=60, rebuild_clusters=4,
             s_requests=8, s_batch=4, p_kappa=4, p_requests=8, p_batch=4,
             k_rows=300, k_dim=8, k_kappa=4, k_requests=8, k_batch=4,
-            yard_rows=64, p_hint_rows=300, k_hint_rows=100, window_ticks=2)
+            yard_rows=64, p_hint_rows=300, k_hint_rows=100, window_ticks=2,
+            g_docs=200, g_emb_dim=32, g_topics=6, g_text=(16, 48),
+            g_queries=3, g_sample_rows=8, g_knn_rows=50, q_docs=240,
+            q_emb_dim=48, q_text=(16, 48), q_queries=3, q_builds=1)
 #: full ticks served before the traced window of phases S and SP
 WINDOW_PRIME = 2
 #: the partition seed phase P's buckets are drawn from (enable_batch's default)
@@ -194,6 +229,8 @@ PATH_KERNELS = {
     "K": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta",
           "bucketed_modmatmul"),
     "C": ("modmatmul_u8", "modmatmul_u32"),
+    "G": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
+    "Q": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
 }
 
 
@@ -468,9 +505,23 @@ def kernel_phase(card, cfg):
         return torch.randn(shape, generator=gen, device=dev)
 
     per_call = -(-cfg["docs"] // 8)
-    for n, k, d in [(300, 700, 96), (1, 1, 1), (129, 65, 768), (128, 5, 16),
-                    (per_call, cfg["clusters"], cfg["emb_dim"])]:
-        check_assign(card, f32((n, d)), f32((k, d)), f"{n}x{k}x{d}")
+    assign_cases = [(300, 700, 96), (1, 1, 1), (129, 65, 768), (128, 5, 16),
+                    (per_call, cfg["clusters"], cfg["emb_dim"])]
+    # G's and Q's: Tiptoe's one-block Lloyd, PIR-RAG's BUILD_BLOCKS blocks,
+    # graph-PIR's entry k-means, and a query's cluster
+    for n, k, d, n_entry in ((cfg["g_docs"], g_clusters(cfg),
+                              cfg["g_emb_dim"], 8),
+                             (cfg["q_docs"], q_clusters(cfg),
+                              cfg["q_emb_dim"], 16)):
+        assign_cases += [(n, k, d),
+                         (-(-n // clustering.BUILD_BLOCKS), k, d),
+                         (n, min(n_entry, n), d), (1, k, d)]
+    assign_errs = {}
+    for n, k, d in assign_cases:
+        assign_errs[f"{n}x{k}x{d}"] = check_assign(card, f32((n, d)),
+                                                   f32((k, d)),
+                                                   f"{n}x{k}x{d}")
+    emit(phase="kernels assign", max_abs_err_min_d2=assign_errs)
     c0 = f32((40, 8))
     x = f32((200, 8))
     a3, _ = ops.kmeans_assign(x, torch.cat([c0, c0, c0]), impl=card.impl)
@@ -1646,6 +1697,457 @@ def phase_c(card, cfg):
 
 
 # --------------------------------------------------------------------------
+# the paper's comparison: PIR-RAG, Tiptoe-style scoring and graph-PIR (G:
+# Fig. 2's scale, Q: Fig. 3's quality regime)
+# --------------------------------------------------------------------------
+
+def _reset_peak(card):
+    if card.dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(card):
+    """Peak card bytes since `_reset_peak` (None in a rehearsal)."""
+    if card.dev.type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _free(card):
+    """Return dropped systems' card memory to the device (nothing to do in a
+    rehearsal)."""
+    if card.dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _gen(card, seed):
+    return torch.Generator(device=card.dev).manual_seed(seed)
+
+
+def g_reckon(corp, n_clusters, degree):
+    """The card bytes each of G's systems holds, reckoned from the corpus
+    before any build: DB, public matrix A (n, k) where the server holds
+    one, and hints.  PIR-RAG's m is its largest cluster's bytes, known only
+    after k-means, so it is reckoned at the mean column."""
+    n, d = corp.embeddings.shape
+    lens = np.fromiter(map(len, corp.texts), np.int64, n)
+    k = LWE_K
+    m_c = -(-(16 + d + int(lens.max())) // 64) * 64
+    m_g = 8 + d + (degree + 4) * (4 + 8)
+    mean_col = -(-(4 + int((16 + d + lens).sum()) // n_clusters) // 256) * 256
+    return dict(content=m_c * n + 4 * n * k + 4 * m_c * k,
+                graph=m_g * n + 4 * n * k + 4 * m_g * k,
+                tiptoe=n * d + 4 * n * k + 4 * d * k,
+                pir_rag_at_mean_column=mean_col * n_clusters
+                + 4 * mean_col * k + 4 * n_clusters * k)
+
+
+def _check_fetched(fetched, ids, corp, what):
+    """Fetched (doc id, embedding, text) triples: the ids asked for, the
+    corpus's text, and the dequantized original embedding, exactly."""
+    if [f[0] for f in fetched] != [int(i) for i in ids]:
+        raise AssertionError(f"{what}: fetched ids {[f[0] for f in fetched]}"
+                             f" != {list(ids)}")
+    for did, emb, text in fetched:
+        want = chunking.dequantize_embedding(
+            *chunking.quantize_embedding(corp.embeddings[did]))
+        if text != corp.texts[did] or not np.array_equal(emb, want):
+            raise AssertionError(f"{what}: doc {did} fetched wrong")
+
+
+def g_clusters(cfg):
+    """G's cluster count, `benchmarks/scalability.py`'s int(√n / 2)."""
+    return max(4, int(np.sqrt(cfg["g_docs"]) / 2))
+
+
+def q_clusters(cfg):
+    """Q's cluster count, `benchmarks/quality.py`'s n // 15."""
+    return max(8, cfg["q_docs"] // 15)
+
+
+def _check_cluster(card, q, cents, got, what):
+    """The query's cluster, as the kernel chose it, against a plain argmin
+    of `clustering.pairwise_sqdist`: equal, unless the two distances lie
+    within 1e-5 · (|q|² + |c|²) of each other (check_assign's tie rule)."""
+    x = torch.as_tensor(np.asarray(q, np.float32), device=card.dev)[None]
+    c = torch.as_tensor(np.asarray(cents, np.float32), device=card.dev)
+    d2 = clustering.pairwise_sqdist(x, c)[0]
+    want = int(torch.argmin(d2))
+    if got != want:
+        gap = float(d2[got] - d2[want])
+        scale = float(torch.sum(x * x) + torch.sum(c[want] * c[want]))
+        if gap > 1e-5 * scale:
+            raise AssertionError(f"{what}: cluster {got} chosen, plain "
+                                 f"argmin {want} (distance gap {gap})")
+
+
+def _tiptoe_oracle(tsys, q, cl, top_k):
+    """The ids the plaintext quantized products rank first in cluster cl."""
+    dq = tsys.quant.unshift(tsys.cluster_mats[cl].cpu().numpy())
+    qq = tsys.quant.unshift(tsys.quant.quantize(np.asarray(q, np.float32)))
+    return tsys.cluster_doc_ids[cl][np.argsort(-(dq @ qq))[:top_k]]
+
+
+def _record_fetches(gsys):
+    """Wrap one graph system's per-hop fetch so every decoded record batch
+    is kept beside the nodes asked for (for the gate against the DB)."""
+    seen = []
+    inner = gsys.fetch_records
+
+    def recording(client, gen, nodes):
+        cols, ms = inner(client, gen, nodes)
+        seen.append((list(nodes), cols))
+        return cols, ms
+
+    gsys.fetch_records = recording
+    return seen
+
+
+def _check_records(card, gsys, seen, what):
+    for nodes, cols in seen:
+        want = gsys.server.db[:, torch.as_tensor(nodes, device=card.dev)]
+        if not np.array_equal(cols, want.cpu().numpy()):
+            raise AssertionError(f"{what}: a decoded graph record != its "
+                                 f"plaintext column")
+    return sum(len(nodes) for nodes, _ in seen)
+
+
+def phase_g(card, cfg):
+    """Fig. 2 at the largest corpus the baselines' byte PIR admits
+    (`benchmarks/scalability.py`'s formulas): the content PIR both
+    baselines owe for RAG, then PIR-RAG, Tiptoe-style and graph-PIR, each
+    built, queried and gated.  PIR-RAG is dropped after its queries; the
+    other three are returned for `g_timing` (launch counts are read
+    first)."""
+    t_phase = time.perf_counter()
+    n, d, top_k = cfg["g_docs"], cfg["g_emb_dim"], 10
+    t0 = time.perf_counter()
+    corp = corpus_lib.make_corpus(0, n, emb_dim=d, n_topics=cfg["g_topics"],
+                                  text_len=cfg["g_text"])
+    corpus_s = time.perf_counter() - t0
+    n_clusters = g_clusters(cfg)
+    degree = 12
+    picks = [qi * 7 for qi in range(cfg["g_queries"])]
+    reckoned = g_reckon(corp, n_clusters, degree)
+    lines = [dict(phase="G memory", docs=n, emb_dim=d, n_clusters=n_clusters,
+                  reckoned_bytes=reckoned, corpus_seconds=corpus_s)]
+
+    def system_line(name, held, qt, rt, **kw):
+        return dict(phase="G system", system=name,
+                    query_s=float(np.median(qt)),
+                    rag_ready_s=float(np.median(rt)), queries=len(qt),
+                    held_bytes=held, max_memory_allocated=_peak(card), **kw)
+
+    _reset_peak(card)
+    t0 = time.perf_counter()
+    content = baseline_common.DocContentPIR.build(corp.texts, corp.embeddings,
+                                                  device=card.dev)
+    card.sync()
+    content_s = time.perf_counter() - t0
+    ccfg = content.cfg
+    if ccfg.params.p != 256:
+        raise AssertionError(f"phase G: content PIR p = {ccfg.params.p}")
+    content_held = ccfg.m * ccfg.n + 4 * ccfg.n * LWE_K + ccfg.hint_bytes
+    lines.append(dict(phase="G content", m=ccfg.m, n=ccfg.n, p=ccfg.params.p,
+                      build_seconds=content_s,
+                      per_fetch_uplink=content.per_fetch_uplink,
+                      per_fetch_downlink=content.per_fetch_downlink,
+                      held_bytes=content_held,
+                      max_memory_allocated=_peak(card)))
+
+    # PIR-RAG: content arrives with the retrieval
+    _reset_peak(card)
+    system = pipeline.PirRagSystem.build(corp.texts, corp.embeddings,
+                                         n_clusters=n_clusters, seed=0,
+                                         device=card.dev)
+    qt = []
+    for qi, i in enumerate(picks):
+        t0 = time.perf_counter()
+        top, st = system.query(corp.embeddings[i], top_k=top_k,
+                               generator=_gen(card, qi))
+        qt.append(time.perf_counter() - t0)
+        if i not in [doc for doc, _, _ in top]:
+            raise AssertionError(f"phase G: PIR-RAG lost doc {i} from its "
+                                 f"own query's top-{top_k}")
+    lines.append(system_line(
+        "pir_rag", held_bytes(system) + content_held, qt, qt,
+        setup_s=system.setup_seconds, index_s=system.index_seconds,
+        hint_s=system.hint_seconds, kmeans_s=system.kmeans_seconds,
+        pack_s=system.pack_seconds, uplink=st.uplink_bytes,
+        downlink=st.downlink_bytes, hint_bytes=st.hint_bytes, m=system.db.m,
+        n=system.db.n, own_doc_in_top10=len(picks)))
+    del system, top
+    _free(card)
+
+    # Tiptoe-style: scores, then K content fetches
+    _reset_peak(card)
+    tsys = tiptoe.TiptoeSystem.build(corp.embeddings, n_clusters=n_clusters,
+                                     seed=0, device=card.dev)
+    qt, rt = [], []
+    for qi, i in enumerate(picks):
+        q = corp.embeddings[i]
+        t0 = time.perf_counter()
+        ids, st = tsys.search(q, top_k=top_k, generator=_gen(card, qi))
+        t1 = time.perf_counter()
+        fetched = content.fetch_many(qi, ids[:top_k])
+        t2 = time.perf_counter()
+        qt.append(t1 - t0)
+        rt.append(t2 - t0)
+        _check_cluster(card, q, tsys.centroids, st.cluster_index,
+                       f"phase G: Tiptoe query {qi}")
+        if not np.array_equal(ids, _tiptoe_oracle(tsys, q, st.cluster_index,
+                                                  top_k)):
+            raise AssertionError(f"phase G: Tiptoe query {qi} ranks unlike "
+                                 f"its plaintext quantized products")
+        _check_fetched(fetched, ids[:top_k], corp, "phase G tiptoe")
+    sizes = [len(ids) for ids in tsys.cluster_doc_ids]
+    lines.append(system_line(
+        "tiptoe", n * d + 4 * n * LWE_K + content_held, qt, rt,
+        setup_s=tsys.setup_seconds, index_s=tsys.setup_seconds, hint_s=None,
+        uplink=st.uplink_bytes, downlink=st.downlink_bytes,
+        fetch_uplink=top_k * content.per_fetch_uplink,
+        fetch_downlink=top_k * content.per_fetch_downlink,
+        levels=tsys.quant.levels, max_cluster_docs=max(sizes),
+        empty_clusters=sizes.count(0), clusters_equal_plain=len(picks),
+        ids_equal_plaintext=len(picks)))
+
+    # graph-PIR: a private walk, then K content fetches
+    _reset_peak(card)
+    gsys = graph_pir.GraphPIRSystem.build(corp.embeddings, degree=degree,
+                                          seed=0, device=card.dev)
+    if gsys.cfg.params.p != 256:
+        raise AssertionError(f"phase G: graph PIR p = {gsys.cfg.params.p}")
+    seen = _record_fetches(gsys)
+    qt, rt, hops = [], [], []
+    for qi, i in enumerate(picks):
+        t0 = time.perf_counter()
+        ids, st = gsys.search(corp.embeddings[i], top_k=top_k, beam=8,
+                              max_hops=5, seed=qi)
+        t1 = time.perf_counter()
+        fetched = content.fetch_many(1000 + qi, ids[:top_k])
+        t2 = time.perf_counter()
+        qt.append(t1 - t0)
+        rt.append(t2 - t0)
+        hops.append(st.hops)
+        _check_fetched(fetched, ids[:top_k], corp, "phase G graph")
+    del gsys.fetch_records
+    checked = _check_records(card, gsys, seen, "phase G")
+    gcfg = gsys.cfg
+    lines.append(system_line(
+        "graph_pir", gcfg.m * gcfg.n + 4 * gcfg.n * LWE_K + gcfg.hint_bytes
+        + content_held, qt, rt,
+        setup_s=gsys.setup_seconds, index_s=gsys.index_seconds,
+        hint_s=gsys.hint_seconds, uplink=st.uplink_bytes,
+        downlink=st.downlink_bytes,
+        fetch_uplink=top_k * content.per_fetch_uplink,
+        fetch_downlink=top_k * content.per_fetch_downlink,
+        m=gcfg.m, n=gcfg.n, p=gcfg.params.p, hops=hops,
+        entry_points=len(gsys.entry_points), records_checked=checked))
+    lines.append(dict(phase="G", seconds=time.perf_counter() - t_phase,
+                      docs=n, systems=3, gates_passed=True))
+    return lines, dict(corp=corp, content=content, tiptoe=tsys, graph=gsys)
+
+
+def _mod_line(card, op, left, right, got, rows, reps):
+    """One main-path product of phase G (``got``, the product the path
+    made) held bitwise on ``rows`` random rows against the plain version,
+    then the kernel timed at that shape beside its bound."""
+    u8 = left.dtype == torch.uint8
+    m, n = left.shape
+    b = right.shape[1]
+    gen = torch.Generator(device="cpu").manual_seed(m + n + b)
+    idx = torch.randperm(m, generator=gen)[:rows].to(card.dev)
+    want, plain_ms = card.once_ms(lambda: ref.modmatmul_ref(left[idx],
+                                                            right))
+    err = u32_max_abs_err(got[idx], want)
+    if err:
+        raise AssertionError(f"phase G {op}: kernel != plain on sampled "
+                             f"rows (max err {err})")
+    fn = ((lambda: ops.modmatmul(left, right, impl=card.impl)) if u8 else
+          (lambda: ops.mod_u32_matmul(left, right, impl=card.impl)))
+    ms = card.time_ms(fn, reps=reps)
+    if u8:
+        bytes_, ops_ = m * n + 4 * n * b + 4 * m * b, 2 * m * n * b * 4
+    else:
+        bytes_, ops_ = 4 * (m * n + n * b + m * b), 2 * m * n * b * 10
+    bound, by = _bound(bytes_, ops_, INT8_OPS_PER_S)
+    return dict(phase="timing G", op=op,
+                kernel="modmatmul_u8" if u8 else "modmatmul_u32",
+                shape=f"{m}x{n}x{b}", ms=ms, bound_ms=bound, bound_by=by,
+                sample_rows=len(idx), plain_sample_ms=plain_ms,
+                max_abs_err=err)
+
+
+def knn_check(card, corp, gsys, rows):
+    """The graph's k-NN neighbours of ``rows`` sampled nodes, read from
+    their records on the card, against a float64 recompute of the
+    similarities: the same similarity sequence within 1e-6, so any
+    difference is a swap of near-ties."""
+    deg, d = 12, gsys.emb_dim
+    n = gsys.n_docs
+    idx = np.random.default_rng(21).choice(n, min(rows, n), replace=False)
+    recs = gsys.server.db[8 + d:8 + d + 4 * deg,
+                          torch.as_tensor(idx, device=card.dev)]
+    got = recs.t().contiguous().cpu().numpy().view("<u4").astype(np.int64)
+    x = torch.from_numpy(corp.embeddings).to(card.dev, torch.float64)
+    x = x / (x.norm(dim=1, keepdim=True) + 1e-12)
+    sims = x[torch.as_tensor(idx, device=card.dev)] @ x.T
+    sims[torch.arange(len(idx), device=card.dev),
+         torch.as_tensor(idx, device=card.dev)] = -torch.inf
+    want = torch.topk(sims, deg, dim=1).indices
+    s_got = torch.gather(sims, 1, torch.as_tensor(got, device=card.dev))
+    s_want = torch.gather(sims, 1, want)
+    gap = float((s_got - s_want).abs().max())
+    differ = int((torch.as_tensor(got, device=card.dev) != want).any(1).sum())
+    if gap > 1e-6:
+        raise AssertionError(f"phase G k-NN: similarity sequence off by "
+                             f"{gap} against float64")
+    return dict(phase="G knn", rows=len(idx), rows_differing=differ,
+                max_similarity_gap=gap, tolerance=1e-6)
+
+
+def g_timing(card, cfg, kept):
+    """G's new shapes, after G's launch counts are read: every product the
+    content and graph PIRs and Tiptoe ran, held on sampled rows against
+    the plain version and timed; then the k-NN graph's check."""
+    rows = cfg["g_sample_rows"]
+    content, gsys, tsys = kept["content"], kept["graph"], kept["tiptoe"]
+    lines = []
+    for name, server, hint, b in (("content", content.server, content.hint,
+                                   1),
+                                  ("graph", gsys.server, gsys.hint, 8)):
+        db, a_mat = server.db, server.a_matrix
+        lines.append(_mod_line(card, f"{name} hint", db, a_mat, hint, rows,
+                               reps=3))
+        client = pir.PIRClient(server.cfg, hint, a_mat=a_mat)
+        nodes = list(range(0, server.cfg.n, max(1, server.cfg.n // b)))[:b]
+        qs, secrets = client.query_batch(_gen(card, 23), nodes)
+        what = "fetch answer" if name == "content" else "hop answer"
+        lines.append(_mod_line(card, f"{name} {what}", db, qs,
+                               ops.modmatmul(db, qs, impl=card.impl), rows,
+                               reps=10))
+        lines.append(_mod_line(card, f"{name} query A·S", a_mat, secrets,
+                               ops.mod_u32_matmul(a_mat, secrets,
+                                                  impl=card.impl),
+                               rows, reps=10))
+        del qs, secrets
+    big = max(range(len(tsys.cluster_mats)),
+              key=lambda j: tsys.cluster_mats[j].shape[0])
+    dmat = tsys.cluster_mats[big]
+    lines.append(_mod_line(card, "tiptoe hint", dmat, tsys.a_mat,
+                           tsys.hints[big], dmat.shape[0], reps=10))
+    q = tsys.quant.quantize(kept["corp"].embeddings[0])
+    ct, _ = baseline_common.encrypt_embedding(_gen(card, 24), q, tsys.params,
+                                              tsys.a_mat, impl=card.impl)
+    lines.append(_mod_line(card, "tiptoe score", dmat, ct[:, None],
+                           ops.modmatmul(dmat, ct[:, None], impl=card.impl),
+                           dmat.shape[0], reps=20))
+    lines.append(knn_check(card, kept["corp"], gsys, cfg["g_knn_rows"]))
+    return lines
+
+
+def phase_q(card, cfg):
+    """Fig. 3's regime (`benchmarks/quality.py`): NDCG@10, P@10, R@50,
+    retrieval and RAG-ready seconds of the three systems on one corpus;
+    PIR-RAG and Tiptoe averaged over builds, graph-PIR built once.
+    PIR-RAG's RAG-ready time is its retrieval time by construction: its
+    content comes with the ids.  Gated: each Tiptoe query's cluster equals
+    a plain argmin and its ids the plaintext quantized ranking, both
+    baselines pay a fetch tail, every fetched document is exact.  The
+    quality ordering is printed, not gated."""
+    t_phase = time.perf_counter()
+    n, top_k = cfg["q_docs"], 10
+    corp = corpus_lib.make_corpus(0, n, emb_dim=cfg["q_emb_dim"], n_topics=50,
+                                  text_len=cfg["q_text"], topic_spread=1.0,
+                                  encoder_noise=0.3)
+    qs = corpus_lib.make_queries(1, corp, cfg["q_queries"], n_relevant=30,
+                                 noise=0.4, topical=False)
+    n_clusters = q_clusters(cfg)
+    gsys = graph_pir.GraphPIRSystem.build(corp.embeddings, degree=24,
+                                          n_entry=16, seed=0,
+                                          device=card.dev)
+    content = baseline_common.DocContentPIR.build(corp.texts, corp.embeddings,
+                                                  device=card.dev)
+    out = {s: dict(ndcg=[], p=[], r=[], t_ret=[], t_ready=[])
+           for s in ("pir_rag", "tiptoe", "graph_pir")}
+
+    def score(name, ids, qi, t_ret, t_ready):
+        rel, gains = qs.relevant[qi], qs.gains[qi]
+        d = out[name]
+        d["ndcg"].append(metrics.ndcg_at_k(ids, rel, gains, top_k))
+        d["p"].append(metrics.precision_at_k(ids, rel, top_k))
+        d["r"].append(metrics.recall_at_k(ids, rel, 50))
+        d["t_ret"].append(t_ret)
+        d["t_ready"].append(t_ready)
+
+    tiptoe_checked = 0
+    for bi in range(cfg["q_builds"]):
+        bseed = 100 * bi
+        sysm = pipeline.PirRagSystem.build(corp.texts, corp.embeddings,
+                                           n_clusters=n_clusters, seed=bseed,
+                                           device=card.dev)
+        tsys = tiptoe.TiptoeSystem.build(corp.embeddings,
+                                         n_clusters=n_clusters, seed=bseed,
+                                         device=card.dev)
+        for qi in range(cfg["q_queries"]):
+            q = qs.embeddings[qi]
+            t0 = time.perf_counter()
+            top, _ = sysm.query(q, top_k=top_k, generator=_gen(card, qi))
+            t1 = time.perf_counter()
+            score("pir_rag", np.array([doc for doc, _, _ in top]), qi,
+                  t1 - t0, t1 - t0)        # the content came with the ids
+
+            t0 = time.perf_counter()
+            ids, st = tsys.search(q, top_k=top_k, generator=_gen(card, qi))
+            t1 = time.perf_counter()
+            fetched = content.fetch_many(qi, ids[:top_k])
+            t2 = time.perf_counter()
+            what = f"phase Q: Tiptoe build {bi} query {qi}"
+            _check_cluster(card, q, tsys.centroids, st.cluster_index, what)
+            if not np.array_equal(ids, _tiptoe_oracle(
+                    tsys, q, st.cluster_index, top_k)):
+                raise AssertionError(f"{what} ranks unlike its plaintext "
+                                     f"quantized products")
+            tiptoe_checked += 1
+            _check_fetched(fetched, ids[:top_k], corp, "phase Q tiptoe")
+            score("tiptoe", ids, qi, t1 - t0, t2 - t0)
+
+            if bi > 0:
+                continue      # graph-PIR has no cluster seed: built once
+            t0 = time.perf_counter()
+            ids, _ = gsys.search(q, top_k=top_k, beam=32, max_hops=12,
+                                 seed=qi)
+            t1 = time.perf_counter()
+            fetched = content.fetch_many(1000 + qi, ids[:top_k])
+            t2 = time.perf_counter()
+            _check_fetched(fetched, ids[:top_k], corp, "phase Q graph")
+            score("graph_pir", ids, qi, t1 - t0, t2 - t0)
+        del sysm, tsys
+    rows = {s: dict(ndcg10=float(np.mean(d["ndcg"])),
+                    p10=float(np.mean(d["p"])), r50=float(np.mean(d["r"])),
+                    t_retrieval_s=float(np.mean(d["t_ret"])),
+                    t_rag_ready_s=float(np.mean(d["t_ready"])),
+                    queries=len(d["ndcg"]))
+            for s, d in out.items()}
+    for s in ("tiptoe", "graph_pir"):
+        if not all(b > a for a, b in zip(out[s]["t_ret"], out[s]["t_ready"])):
+            raise AssertionError(f"phase Q: {s} paid no fetch tail")
+    order = sorted(rows, key=lambda s: -rows[s]["ndcg10"])
+    lines = [dict(phase="Q system", system=s, **r) for s, r in rows.items()]
+    lines.append(dict(phase="Q", seconds=time.perf_counter() - t_phase,
+                      docs=n, emb_dim=cfg["q_emb_dim"], n_clusters=n_clusters,
+                      builds=cfg["q_builds"], queries=cfg["q_queries"],
+                      ndcg10_order=order,
+                      paper_order_holds=order == ["graph_pir", "pir_rag",
+                                                  "tiptoe"],
+                      tiptoe_clusters_and_ids_checked=tiptoe_checked))
+    return lines
+
+
+# --------------------------------------------------------------------------
 # timing at the main path's shapes
 # --------------------------------------------------------------------------
 
@@ -2143,8 +2645,26 @@ def main(argv=None) -> int:
     finally:
         gc.enable()
     emit(**freed_line("K", held, before, after))
-    if card.dev.type == "cuda":
-        torch.cuda.empty_cache()     # C starts from an empty cache, as before
+    _free(card)
+
+    ops.reset_launch_counts()
+    lines_g, kept = phase_g(card, cfg)
+    paths["G"] = ops.launch_counts()
+    for line in lines_g:
+        emit(**line)
+    emit(phase="launches G", **paths["G"])
+    for line in g_timing(card, cfg, kept):
+        emit(**line)
+    del kept
+    _free(card)
+
+    ops.reset_launch_counts()
+    lines_q = phase_q(card, cfg)
+    paths["Q"] = ops.launch_counts()
+    for line in lines_q:
+        emit(**line)
+    emit(phase="launches Q", **paths["Q"])
+    _free(card)                  # C starts from an empty cache, as before
 
     ops.reset_launch_counts()
     state, line_c = phase_c(card, cfg)

@@ -12,7 +12,10 @@ live index and the port's give the same patches, DB bytes and hints.
 ``n_buckets`` and the partition ``seed``, e.g. ``sys.batch.kappa``,
 ``sys.batch.partition.n_buckets``, ``sys.batch.seed``) fix the cuckoo
 placement, so the sub-DBs, bucket hints and answers equal the reference's
-too.  Nothing here imports JAX.
+too.  `tiptoe_from_state` and `graph_from_state` carry the baselines'
+k-means outcome across the same way (their only float draws), so the
+port's cluster matrices, hints and search results equal the reference's.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch._common import resolve_device
+from repro_torch.core.baselines.graph_pir import GraphPIRSystem
+from repro_torch.core.baselines.tiptoe import TiptoeSystem
 from repro_torch.core.pipeline import PirRagSystem
 from repro_torch.update.live import LiveIndex
 
@@ -71,3 +76,33 @@ def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
     return LiveIndex(system, texts, embeddings, doc_ids=doc_ids,
                      max_pad_fraction=max_pad_fraction,
                      compact_every=compact_every)
+
+
+def tiptoe_from_state(embeddings: np.ndarray, *, centroids: np.ndarray,
+                      assignment: np.ndarray, n_clusters: int,
+                      levels: int = 15, seed: int = 0, impl: str = "auto",
+                      device: str | torch.device | None = None
+                      ) -> TiptoeSystem:
+    """A `TiptoeSystem` on ``device`` from a finished clustering (e.g. the
+    reference's ``sys.centroids`` and the assignment of its k-means);
+    ``seed`` fixes the public matrix seed ``seed + 101`` as in `build`."""
+    dev = resolve_device(device)
+    return TiptoeSystem._from_parts(
+        np.asarray(embeddings, np.float32), np.asarray(centroids, np.float32),
+        np.asarray(assignment), n_clusters, levels=levels, seed=seed,
+        impl=impl, device=dev, t0=time.perf_counter())
+
+
+def graph_from_state(embeddings: np.ndarray, *, entry_points: np.ndarray,
+                     degree: int = 12, n_random: int = 4, seed: int = 0,
+                     sketch_bits: int = 64, impl: str = "auto",
+                     device: str | torch.device | None = None
+                     ) -> GraphPIRSystem:
+    """A `GraphPIRSystem` on ``device`` with the given entry points (e.g.
+    the reference's ``sys.entry_points``): graph, records and hint are
+    built as in `build`, without its entry-point k-means."""
+    dev = resolve_device(device)
+    return GraphPIRSystem._from_parts(
+        np.asarray(embeddings, np.float32), entry_points, degree=degree,
+        n_random=n_random, seed=seed, sketch_bits=sketch_bits, impl=impl,
+        device=dev, t0=time.perf_counter())

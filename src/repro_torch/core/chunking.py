@@ -16,6 +16,11 @@ The live index re-packs only the clusters a mutation batch touches
 (`rebuild_columns`); `ColumnOverflowError` is its signal that a column no
 longer fits in m rows and the index must be rebuilt.
 
+`quantize_rows` and `doc_records` serialize every document at once, byte
+for byte as `quantize_embedding` and `serialize_doc` do one at a time: one
+record per row of an (n_docs, m) matrix, for a PIR with one column per
+document.
+
 The client parses a decrypted column with `parse_column`: one pass over
 the records' text lengths, then every header and quantized embedding
 gathered and dequantized in array operations.  `deserialize_docs` gives
@@ -88,6 +93,47 @@ def serialize_doc(doc_id: int, emb: np.ndarray, text: bytes) -> bytes:
     hdr = (np.uint32(doc_id).tobytes() + np.uint32(len(text)).tobytes()
            + np.float32(scale).tobytes() + np.float32(off).tobytes())
     return hdr + q.tobytes() + text
+
+
+def quantize_rows(embs: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`quantize_embedding` of every row at once, bitwise:
+    (q (n, d) u8, scale (n,) f32, offset (n,) f32).
+
+    The per-row scale is formed in float64 as the reference's Python float
+    and then applied in float32, as numpy applies a Python float to a
+    float32 array.
+    """
+    embs = np.asarray(embs, np.float32)
+    lo, hi = embs.min(axis=1), embs.max(axis=1)
+    scale = np.where(hi > lo, (hi.astype(np.float64) - lo) / 255.0, 1.0)
+    q = np.clip(np.round((embs - lo[:, None])
+                         / scale.astype(np.float32)[:, None]), 0, 255)
+    return q.astype(np.uint8), scale.astype(np.float32), lo
+
+
+def doc_records(texts, embeddings: np.ndarray, *, chunk_size: int = 64
+                ) -> np.ndarray:
+    """Every document's `serialize_doc` record (doc id = its row),
+    zero-padded to m bytes, m = the longest record rounded up to
+    ``chunk_size``: (n_docs, m) u8, row-major."""
+    n, d = embeddings.shape
+    lens = np.fromiter(map(len, texts), np.int64, n)
+    raw = _HDR + d + int(lens.max())
+    m = -(-raw // chunk_size) * chunk_size
+    q, scale, off = quantize_rows(embeddings)
+    hdr = np.empty((n, 4), "<u4")
+    hdr[:, 0] = np.arange(n)
+    hdr[:, 1] = lens
+    hdr[:, 2] = scale.view("<u4")
+    hdr[:, 3] = off.view("<u4")
+    rows = np.zeros((n, m), np.uint8)
+    rows[:, :_HDR] = hdr.view(np.uint8)
+    rows[:, _HDR:_HDR + d] = q
+    at = _HDR + d
+    for i, t in enumerate(texts):
+        rows[i, at:at + len(t)] = np.frombuffer(t, np.uint8)
+    return rows
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Synthetic corpora with planted semantic structure (twin of
 ``repro/data/corpus.py``).
 
-Gaussian-mixture embeddings with known topic structure; the same seed gives
-the same bytes as the JAX package's `make_corpus`.
+Gaussian-mixture embeddings with known topic structure, and queries with
+exact brute-force relevance labels; the same seed gives the same bytes as
+the JAX package's `make_corpus` and the same arrays as its `make_queries`.
 """
 from __future__ import annotations
 
@@ -18,6 +19,13 @@ class Corpus:
     latent: np.ndarray            # (N, d) f32 — ground-truth semantics
     topics: np.ndarray            # (N,) int
     d: int
+
+
+@dataclasses.dataclass
+class QuerySet:
+    embeddings: np.ndarray        # (Q, d) f32
+    relevant: list[np.ndarray]    # per query: doc ids, ranked by true score
+    gains: list[np.ndarray]       # graded relevance aligned with `relevant`
 
 
 def _unit(x: np.ndarray) -> np.ndarray:
@@ -52,3 +60,42 @@ def make_corpus(seed: int, n_docs: int, *, emb_dim: int = 96,
         texts.append((body + filler.tobytes())[:ln])
     return Corpus(texts=texts, embeddings=emb.astype(np.float32),
                   latent=latent.astype(np.float32), topics=topics, d=emb_dim)
+
+
+def make_queries(seed: int, corpus: Corpus, n_queries: int, *,
+                 n_relevant: int = 50, noise: float = 0.25,
+                 topical: bool = False) -> QuerySet:
+    """Queries perturbed from random docs.
+
+    relevance oracle (in LATENT space):
+      topical=False — global cosine top-L (vector-benchmark style)
+      topical=True  — cosine top-L within the anchor's topic
+    """
+    rng = np.random.default_rng(seed)
+    anchors = rng.integers(0, len(corpus.texts), n_queries)
+    q_lat = _unit(corpus.latent[anchors]
+                  + noise / np.sqrt(corpus.d)
+                  * rng.standard_normal((n_queries, corpus.d)))
+    # the system sees the query through the same imperfect encoder: a
+    # random perturbation of the same norm as the doc-side encoder gap
+    enc_scale = float(np.linalg.norm(corpus.latent - corpus.embeddings,
+                                     axis=1).mean())
+    if enc_scale > 0:
+        q = _unit(q_lat + enc_scale
+                  * _unit(rng.standard_normal((n_queries, corpus.d)))
+                  ).astype(np.float32)
+    else:
+        q = q_lat.astype(np.float32)
+    rel, gains = [], []
+    for i in range(n_queries):
+        if topical:
+            topic = corpus.topics[anchors[i]]
+            pool = np.nonzero(corpus.topics == topic)[0]
+        else:
+            pool = np.arange(len(corpus.texts))
+        scores = q_lat[i] @ corpus.latent[pool].T
+        L = min(n_relevant, len(pool))
+        top = pool[np.argsort(-scores)[:L]]
+        rel.append(top.astype(np.int64))
+        gains.append(np.linspace(1.0, 0.1, L).astype(np.float32))
+    return QuerySet(embeddings=q, relevant=rel, gains=gains)
