@@ -79,6 +79,26 @@ path at full width and checks what comes out.  The phases, in order:
            RAG-ready time must equal its retrieval time and both baselines
            must pay a fetch tail; the quality ordering is printed, not
            gated
+  R        the RAG path end to end (`benchmarks/rag_bench.py`'s full
+           shape): PIR-RAG over 4,000 docs (d = 48, 256 clusters), 16
+           requests as two `query_batch` calls of 8, top-3; the retrieved
+           texts packed into byte prompts of 160 tokens and a float32
+           decoder at Qwen3-4B width (36 layers, d = 2560, vocab 151,936,
+           seeded weights) prefilling them and decoding 16 tokens from its
+           KV cache.  Gates: every retrieved text equals the corpus's;
+           packed + dropped bytes equal the bytes offered, no prompt over
+           160 tokens; prefill's and every decode step's logits within
+           R_ATOL_PREFILL / R_ATOL_DECODE of one teacher-forced `forward`
+           over prompt + generated tokens; each greedy token its argmax
+           wherever the top-2 gap exceeds 2·atol (near-ties counted);
+           `generate_nocache` and two rows generated alone (greedy, and
+           sampled at temperature 0.8) equal the batch up to a first
+           split at a near-tie (max |Δlogit| alone against batched
+           printed).  Retrieval, prefill, decode-step, first-token ms,
+           tokens/s and peak card memory beside the decode-step bound and
+           the prefill bounds of the real tokens (causal attention) and of
+           the padded grid; one traced decode step between two untraced
+           runs of R_HOST_STEPS steps (host issue, step and device ms)
   C        the production PIR point (m = 2,097,152, n = 4096, k = 1024,
            q_switch = 2^16): `PIRServer.setup`, `answer` on 64 encrypted
            one-hots, `PIRClient.recover_batch`; all 64 columns exact
@@ -93,8 +113,8 @@ path at full width and checks what comes out.  The phases, in order:
            pack is timed apart at U's shapes, and at J = 256 both layouts
            in turns; K's answer pass beside P's
 
-Launch counts are set to 0 just before each of phases B, U, S, P, K, G, Q
-and C and read just after it; every kernel of a path must have launched in
+Launch counts are set to 0 just before each of phases B, U, S, P, K, G, Q,
+R and C and read just after it; every kernel of a path must have launched in
 it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
@@ -131,6 +151,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import batchpir  # noqa: E402
 from repro_torch.batchpir.server import bucket_rows  # noqa: E402
+from repro_torch.configs import qwen3_4b  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
 from repro_torch.core.baselines import common as baseline_common  # noqa: E402
@@ -140,6 +161,9 @@ from repro_torch.data import metrics  # noqa: E402
 from repro_torch.kernels import (_build, bucketed_modmatmul,  # noqa: E402
                                  delta_gemm, modmatmul, ops, ref)
 from repro_torch.fleet import faults as faults_lib  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.rag import generate as rag_generate  # noqa: E402
+from repro_torch.rag import prompt as rag_prompt  # noqa: E402
 from repro_torch.serve import PIRServeLoop, PipelinedServeLoop  # noqa: E402
 from repro_torch.update import (HintCache, LiveIndex, journal,  # noqa: E402
                                 planner)
@@ -159,7 +183,9 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             g_docs=700_000, g_emb_dim=128, g_topics=7_000,
             g_text=(800, 1600), g_queries=8, g_sample_rows=64,
             g_knn_rows=1000, q_docs=5000, q_emb_dim=384, q_text=(64, 256),
-            q_queries=12, q_builds=3)
+            q_queries=12, q_builds=3, r_docs=4000, r_emb_dim=48,
+            r_topics=256, r_clusters=256, r_requests=16, r_batch=8,
+            r_budget=160, r_new=16, r_model="qwen3-4b")
 #: p_hint_rows, k_hint_rows: the tallest bucket hint of phases P and K at
 #: these widths (902,656 and 336,128 rows), for the kernel phase's
 #: one-column u32 cases, which run before those phases.  g_docs: 700,000,
@@ -173,9 +199,25 @@ TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             yard_rows=64, p_hint_rows=300, k_hint_rows=100, window_ticks=2,
             g_docs=200, g_emb_dim=32, g_topics=6, g_text=(16, 48),
             g_queries=3, g_sample_rows=8, g_knn_rows=50, q_docs=240,
-            q_emb_dim=48, q_text=(16, 48), q_queries=3, q_builds=1)
+            q_emb_dim=48, q_text=(16, 48), q_queries=3, q_builds=1,
+            r_docs=100, r_emb_dim=64, r_topics=8, r_clusters=16,
+            r_requests=4, r_batch=2, r_budget=160, r_new=8, r_model="tiny")
+# r_*: phase R, `benchmarks/rag_bench.py`'s full shape (4,000 docs, d = 48,
+# 256 clusters, top-3, prompts of 160 tokens, 16 new tokens, batches of 8)
+# and the port's Qwen3-4B width; TINY keeps B's corpus and the tiny model.
+
 #: full ticks served before the traced window of phases S and SP
 WINDOW_PRIME = 2
+#: phase R's tolerances on logits against one teacher-forced forward
+#: (float32 throughout; other GEMM shapes round differently, and decode's
+#: one-shot softmax over the cache differs from the chunked one): the
+#: first run at Qwen3-4B width on the H100 measured 1.7e-5 for both
+R_ATOL_PREFILL = 1e-4
+R_ATOL_DECODE = 1e-4
+#: decode steps phase R times untraced, before and after its traced step
+R_HOST_STEPS = 8
+#: phase R's sampling temperature (alone against batched)
+R_TEMPERATURE = 0.8
 #: the partition seed phase P's buckets are drawn from (enable_batch's default)
 P_SEED = 101
 #: shares of the clusters phase U's two delta epochs touch (update_bench's
@@ -231,6 +273,7 @@ PATH_KERNELS = {
     "C": ("modmatmul_u8", "modmatmul_u32"),
     "G": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
     "Q": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
+    "R": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
 }
 
 
@@ -516,6 +559,10 @@ def kernel_phase(card, cfg):
         assign_cases += [(n, k, d),
                          (-(-n // clustering.BUILD_BLOCKS), k, d),
                          (n, min(n_entry, n), d), (1, k, d)]
+    # R's: PIR-RAG's build at rag_bench's shape, whole and one of its
+    # BUILD_BLOCKS blocks (d = 48 pads the last 32-wide stage)
+    n, k, d = cfg["r_docs"], cfg["r_clusters"], cfg["r_emb_dim"]
+    assign_cases += [(n, k, d), (-(-n // clustering.BUILD_BLOCKS), k, d)]
     assign_errs = {}
     for n, k, d in assign_cases:
         assign_errs[f"{n}x{k}x{d}"] = check_assign(card, f32((n, d)),
@@ -2148,6 +2195,323 @@ def phase_q(card, cfg):
 
 
 # --------------------------------------------------------------------------
+# R: the RAG generation stage after a real retrieval
+# --------------------------------------------------------------------------
+
+def r_model_config(cfg):
+    """R's decoder: the port's Qwen3-4B `FULL` width, or `Generator.tiny`'s
+    widths in a rehearsal; float32 compute either way."""
+    if cfg["r_model"] == "qwen3-4b":
+        return qwen3_4b.FULL
+    return rag_generate.tiny_config()
+
+
+def _top2_gap(scores: torch.Tensor) -> np.ndarray:
+    top = torch.topk(scores, 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+def _per_step_agree(tokens, scores, tol, what):
+    """Each token equals the argmax of its step's scores (B, N, V) wherever
+    their top-2 gap exceeds 2·tol; returns (near-ties, tokens that differ
+    at one)."""
+    want = torch.argmax(scores, dim=-1).cpu().numpy()
+    gap = _top2_gap(scores)
+    differ = tokens != want
+    if (differ & (gap > 2 * tol)).any():
+        b, s = np.argwhere(differ & (gap > 2 * tol))[0]
+        raise AssertionError(f"phase R: {what}: row {b} step {s} token "
+                             f"{tokens[b, s]} != argmax {want[b, s]} (top-2 "
+                             f"gap {gap[b, s]:.3g} > {2 * tol:.3g})")
+    return int((gap <= 2 * tol).sum()), int(differ.sum())
+
+
+def _first_split_agree(got, ref, gap, tol, what):
+    """Token rows ``got`` and ``ref`` (B, N) agree up to a row's first
+    difference, which must sit on a near-tie of the reference's scores
+    (``gap`` (B, N) at most 2·tol).  Returns the rows equal throughout."""
+    equal = 0
+    for b in range(got.shape[0]):
+        diff = np.flatnonzero(got[b] != ref[b])
+        if not diff.size:
+            equal += 1
+        elif gap[b, diff[0]] > 2 * tol:
+            raise AssertionError(f"phase R: {what}: row {b} splits at step "
+                                 f"{diff[0]} off a near-tie (top-2 gap "
+                                 f"{gap[b, diff[0]]:.3g})")
+    return equal
+
+
+def _teacher_forced(gen, grid, lengths, tokens):
+    """Prefill's logits and each decode step's, fed ``tokens`` (B, N):
+    (B, N, V) float32 on the card."""
+    state = gen.prefill(grid, lengths)
+    cache, lens = state.cache, state.lengths
+    toks = torch.as_tensor(tokens, device=gen.device).long()
+    out = [state.logits]
+    for s in range(1, gen.max_new_tokens):
+        logits, cache = transformer.decode_step(
+            gen.params, cache, toks[:, s - 1], lens + (s - 1), gen.cfg)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def _forward_at_steps(gen, grid, lengths, tokens):
+    """One teacher-forced `forward` over prompt + generated tokens
+    (B, S + N): the logits (B, N, V) at each generation step's position."""
+    B, S = grid.shape
+    N = tokens.shape[1]
+    full_grid = np.full((B, S + N), rag_prompt.PAD, np.int64)
+    full_grid[:, :S] = grid
+    for b in range(B):
+        full_grid[b, lengths[b]:lengths[b] + N] = tokens[b]
+    x, _ = transformer.forward(
+        gen.params, torch.as_tensor(full_grid, device=gen.device), gen.cfg)
+    logits = transformer.logits_from_hidden(gen.params, x, gen.cfg)
+    pos = torch.as_tensor(lengths[:, None] - 1 + np.arange(N)[None],
+                          dtype=torch.int64, device=gen.device)
+    rows = torch.arange(B, device=gen.device)[:, None]
+    return logits[rows, pos]
+
+
+def _sampled_scores(gen, rid, logits):
+    """The sampler's scores for one row: its Gumbel noise + logits / T,
+    (N, V), from that row's logits (N, V)."""
+    noise = torch.cat([rag_generate.gumbel_noise(
+        gen._root_key, [rid], s, logits.shape[-1], gen.device)
+        for s in range(gen.max_new_tokens)])
+    return noise + logits / gen.temperature
+
+
+def r_bounds(mcfg, params, lengths, budget, new):
+    """Phase R's bounds on the H100 SXM peaks, each (ms, limit).
+
+    Prefill of the real tokens: 2 FLOP per non-embedding weight per token
+    of ``lengths``, causal attention over each row's own length (2·hd FLOP
+    per (query, key) pair for the scores and as many for the values, per
+    head and layer), the tied head at B rows; bytes: every weight read
+    once and each token's K and V written.  The same over the padded
+    (B, budget) grid with full budget × budget attention, as prefill runs
+    it.  Decode step: every weight read once (the tied embedding as the
+    head) and the cache up to the rows' mean length over the steps,
+    against 2 FLOP per weight per row."""
+    n_all = sum(t.numel() for t in _leaves(params))
+    n_embed = mcfg.vocab * mcfg.d_model
+    L, H, KV, hd = mcfg.n_layers, mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim
+    lengths = np.asarray(lengths, np.int64)
+    batch = len(lengths)
+
+    def prefill(tokens, pairs):
+        ops_ = (2 * (n_all - n_embed) * tokens + 4 * hd * H * L * pairs
+                + 2 * n_embed * batch)
+        return _bound(4 * n_all + 4 * tokens * (1 + 2 * KV * hd * L), ops_,
+                      FP32_FLOPS_PER_S)
+
+    real = prefill(int(lengths.sum()), int((lengths * (lengths + 1) // 2)
+                                           .sum()))
+    padded = prefill(batch * budget, batch * budget * budget)
+    mean_ctx = float(np.mean(lengths)) + (new - 1) / 2
+    cache_bytes = 4 * 2 * KV * hd * L * batch * mean_ctx
+    step = _bound(4 * n_all + cache_bytes, 2 * n_all * batch,
+                  FP32_FLOPS_PER_S)
+    return real, padded, step
+
+
+def _decode_steps_ms(card, gen, state, cur, n):
+    """Host and device milliseconds a decode step over ``n`` steps from
+    ``state``: the host's time to issue them, the time until the card has
+    finished them, and CUDA events around them (None off the card)."""
+    cache, lens = state.cache, state.lengths
+    card.sync()
+    events = None
+    if card.dev.type == "cuda":
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+    t0 = time.perf_counter()
+    for s in range(n):
+        transformer.decode_step(gen.params, cache, cur, lens + s, gen.cfg)
+    t1 = time.perf_counter()
+    if events:
+        events[1].record()
+    card.sync()
+    t2 = time.perf_counter()
+    return dict(issue_ms=1e3 * (t1 - t0) / n, step_ms=1e3 * (t2 - t0) / n,
+                device_ms=events[0].elapsed_time(events[1]) / n
+                if events else None)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_r(card, cfg):
+    """The RAG path end to end: PIR-RAG retrieval (`rag_bench`'s full
+    shape), the retrieved texts packed into byte prompts, and a float32
+    decoder (Qwen3-4B width on the card) prefilling them and decoding from
+    its KV cache.  Gates: texts equal the corpus's, packing accounts for
+    every byte, prefill's and each decode step's logits agree with one
+    teacher-forced `forward`, greedy tokens are its argmax off near-ties,
+    `generate_nocache` gives the same tokens, and two rows generated alone
+    (greedy and sampled) equal the same rows in the batch off near-ties."""
+    t_phase = time.perf_counter()
+    _reset_peak(card)
+    n, B, new = cfg["r_docs"], cfg["r_batch"], cfg["r_new"]
+    spec = rag_prompt.PromptSpec(cfg["r_budget"])
+    corp = corpus_lib.make_corpus(0, n, emb_dim=cfg["r_emb_dim"],
+                                  n_topics=cfg["r_topics"])
+    system, build_ms = card.once_ms(lambda: pipeline.PirRagSystem.build(
+        corp.texts, corp.embeddings, n_clusters=cfg["r_clusters"],
+        device=card.dev))
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, n, cfg["r_requests"])
+    mcfg = r_model_config(cfg)
+    params, init_ms = card.once_ms(lambda: transformer.init(
+        _gen(card, 7), mcfg, device=card.dev))
+    gen = rag_generate.Generator(params, mcfg, spec=spec,
+                                 max_new_tokens=new, device=card.dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    retrieve_gen = _gen(card, 5)
+
+    lines, batches = [], []
+    for j in range(cfg["r_requests"] // B):
+        rids = list(range(j * B, (j + 1) * B))
+        tops, retrieve_ms = card.once_ms(lambda: system.query_batch(
+            corp.embeddings[ids[rids]], top_k=3, generator=retrieve_gen))
+        for top in tops:
+            for did, _, text in top:
+                if text != corp.texts[did]:
+                    raise AssertionError(f"phase R: doc {did} retrieved "
+                                         f"wrong")
+        (grid, lengths, prompts), pack_ms = card.once_ms(
+                                                     lambda: gen.pack(tops))
+        for top, p in zip(tops, prompts):
+            offered = sum(len(t) for _, _, t in top)
+            if p.packed_bytes + p.dropped_bytes != offered or \
+                    p.length > spec.context_budget:
+                raise AssertionError("phase R: packing lost bytes or "
+                                     "overran the budget")
+        state, prefill_ms = card.once_ms(lambda: gen.prefill(grid,
+                                                               lengths))
+        tokens, decode_ms = card.once_ms(lambda: gen.decode(state, rids))
+        batches.append((rids, tops, grid, lengths, tokens))
+        lines.append(dict(
+            phase="R batch", batch=j, requests=B, retrieve_ms=retrieve_ms,
+            pack_ms=pack_ms, prefill_ms=prefill_ms, decode_ms=decode_ms,
+            decode_step_ms=decode_ms / max(1, new - 1),
+            ttft_ms=retrieve_ms + pack_ms + prefill_ms,
+            tokens_per_s=B * new / (1e-3 * (prefill_ms + decode_ms)),
+            prompt_tokens=int(lengths.sum()),
+            docs_packed=sum(p.n_docs for p in prompts),
+            docs_dropped=sum(p.n_docs_dropped for p in prompts)))
+
+    # logits against one teacher-forced forward, tokens against its argmax
+    err_pre = err_dec = 0.0
+    near = differ = 0
+    for rids, tops, grid, lengths, tokens in batches:
+        forced = _teacher_forced(gen, grid, lengths, tokens)
+        full = _forward_at_steps(gen, grid, lengths, tokens)
+        err_pre = max(err_pre, float((forced[:, 0] - full[:, 0]).abs().max()))
+        err_dec = max(err_dec, float((forced[:, 1:] - full[:, 1:])
+                                     .abs().max()))
+        nt, df = _per_step_agree(tokens, full, R_ATOL_DECODE, "greedy tokens")
+        near, differ = near + nt, differ + df
+    if err_pre > R_ATOL_PREFILL or err_dec > R_ATOL_DECODE:
+        raise AssertionError(f"phase R: logits off the full forward by "
+                             f"{err_pre:.3g} (prefill, atol "
+                             f"{R_ATOL_PREFILL}) / {err_dec:.3g} (decode, "
+                             f"atol {R_ATOL_DECODE})")
+
+    # the cache-free path, and rows alone against the same rows batched
+    rids, tops, grid, lengths, tokens = batches[0]
+    full = _forward_at_steps(gen, grid, lengths, tokens)
+    nocache, nocache_ms = card.once_ms(lambda: gen.generate_nocache(tops,
+                                                                      rids))
+    nocache_equal = _first_split_agree(nocache, tokens, _top2_gap(full),
+                                       R_ATOL_DECODE, "generate_nocache")
+    sampler = rag_generate.Generator(params, mcfg, spec=spec,
+                                     max_new_tokens=new,
+                                     temperature=R_TEMPERATURE, seed=11,
+                                     device=card.dev)
+    sampled = sampler.generate(tops, rids)
+    forced = {"greedy": _teacher_forced(gen, grid, lengths, tokens),
+              "sampled": _teacher_forced(sampler, grid, lengths, sampled)}
+    alone = dict(greedy=dict(equal=0, dlogit=0.0),
+                 sampled=dict(equal=0, dlogit=0.0))
+    for r in sorted({0, B - 1}):
+        one = slice(r, r + 1)
+        for mode, g, batched in (("greedy", gen, tokens),
+                                 ("sampled", sampler, sampled)):
+            got = g.generate(tops[one], rids[one])
+            solo = _teacher_forced(g, grid[one], lengths[one], batched[one])
+            row = forced[mode][r]
+            scores, tol = row[None], R_ATOL_DECODE
+            if mode == "sampled":
+                scores = _sampled_scores(g, rids[r], row)[None]
+                tol = R_ATOL_DECODE / R_TEMPERATURE
+                _per_step_agree(batched[one], scores, tol, "sampled tokens")
+            alone[mode]["dlogit"] = max(alone[mode]["dlogit"], float(
+                (solo[0] - row).abs().max()))
+            alone[mode]["equal"] += _first_split_agree(
+                got, batched[one], _top2_gap(scores), tol,
+                f"row {r} alone ({mode})")
+    peak = _peak(card)
+    # one decode step of the last batch under the profiler, between two
+    # untraced runs of R_HOST_STEPS steps: device time against wall time
+    # says whether the step waits on the host, the two runs whether a
+    # finished profiler session slows later launches
+    rids, tops, grid, lengths, tokens = batches[-1]
+    state = gen.prefill(grid, lengths)
+    cur = torch.as_tensor(tokens[:, 0], device=card.dev)
+    before = _decode_steps_ms(card, gen, state, cur, R_HOST_STEPS)
+    step_wall, step_dev, step_top, _ = traced_ms(
+        card, lambda: transformer.decode_step(gen.params, state.cache, cur,
+                                              state.lengths, mcfg))
+    after = _decode_steps_ms(card, gen, state, cur, R_HOST_STEPS)
+    (pre_ms, pre_by), (pad_ms, pad_by), (step_ms, step_by) = r_bounds(
+        mcfg, params, batches[-1][3], spec.context_budget, new)
+    warm = lines[-1]
+    lines.append(dict(
+        phase="R", seconds=time.perf_counter() - t_phase,
+        card=device_line() if card.dev.type == "cuda" else None,
+        model=mcfg.name,
+        n_layers=mcfg.n_layers, d_model=mcfg.d_model, vocab=mcfg.vocab,
+        params=n_params, param_bytes=4 * n_params, docs=n,
+        n_clusters=cfg["r_clusters"], requests=cfg["r_requests"], batch=B,
+        context_budget=spec.context_budget, max_new_tokens=new,
+        build_ms=build_ms, init_ms=init_ms,
+        texts_checked=sum(len(t) for b in batches for t in b[1]),
+        retrieve_ms=warm["retrieve_ms"], prefill_ms=warm["prefill_ms"],
+        decode_step_ms=warm["decode_step_ms"], ttft_ms=warm["ttft_ms"],
+        tokens_per_s=warm["tokens_per_s"],
+        prompt_tokens=warm["prompt_tokens"],
+        prefill_bound_ms=pre_ms, prefill_bound_by=pre_by,
+        prefill_padded_bound_ms=pad_ms, prefill_padded_bound_by=pad_by,
+        decode_step_bound_ms=step_ms, decode_step_bound_by=step_by,
+        traced_step_wall_ms=step_wall, traced_step_device_ms=step_dev,
+        traced_step_top=[(name[:72], ms) for name, ms in step_top],
+        untraced_steps=R_HOST_STEPS, steps_before_trace=before,
+        steps_after_trace=after,
+        peak_card_bytes=peak, prefill_max_abs_err=err_pre,
+        decode_max_abs_err=err_dec, atol_prefill=R_ATOL_PREFILL,
+        atol_decode=R_ATOL_DECODE, greedy_near_ties=near,
+        greedy_differ_at_near_ties=differ, nocache_ms=nocache_ms,
+        nocache_rows_equal=nocache_equal, alone_rows=len({0, B - 1}),
+        alone_greedy_rows_equal=alone["greedy"]["equal"],
+        alone_greedy_max_dlogit=alone["greedy"]["dlogit"],
+        alone_sampled_rows_equal=alone["sampled"]["equal"],
+        alone_sampled_max_dlogit=alone["sampled"]["dlogit"],
+        temperature=R_TEMPERATURE))
+    return lines
+
+
+# --------------------------------------------------------------------------
 # timing at the main path's shapes
 # --------------------------------------------------------------------------
 
@@ -2664,6 +3028,14 @@ def main(argv=None) -> int:
     for line in lines_q:
         emit(**line)
     emit(phase="launches Q", **paths["Q"])
+    _free(card)
+
+    ops.reset_launch_counts()
+    lines_r = phase_r(card, cfg)
+    paths["R"] = ops.launch_counts()
+    for line in lines_r:
+        emit(**line)
+    emit(phase="launches R", **paths["R"])
     _free(card)                  # C starts from an empty cache, as before
 
     ops.reset_launch_counts()

@@ -15,7 +15,10 @@ placement, so the sub-DBs, bucket hints and answers equal the reference's
 too.  `tiptoe_from_state` and `graph_from_state` carry the baselines'
 k-means outcome across the same way (their only float draws), so the
 port's cluster matrices, hints and search results equal the reference's.
-Nothing here imports JAX.
+`lm_params_from_state` and `generator_from_state` carry a decoder LM's
+weights across: the reference's ``transformer.init`` tree as numpy (blocks
+stacked over layers for its scan) becomes the port's per-layer tree,
+bitwise.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ from repro_torch._common import resolve_device
 from repro_torch.core.baselines.graph_pir import GraphPIRSystem
 from repro_torch.core.baselines.tiptoe import TiptoeSystem
 from repro_torch.core.pipeline import PirRagSystem
+from repro_torch.models.transformer import LMConfig
+from repro_torch.rag.generate import Generator
+from repro_torch.rag.prompt import PromptSpec
 from repro_torch.update.live import LiveIndex
 
 
@@ -106,3 +112,44 @@ def graph_from_state(embeddings: np.ndarray, *, entry_points: np.ndarray,
         np.asarray(embeddings, np.float32), entry_points, degree=degree,
         n_random=n_random, seed=seed, sketch_bits=sketch_bits, impl=impl,
         device=dev, t0=time.perf_counter())
+
+
+def lm_params_from_state(params_np, cfg: LMConfig,
+                         device: str | torch.device | None = None):
+    """The port's parameter tree on ``device`` from the reference's
+    ``transformer.init`` tree as numpy arrays (``{"embed", "blocks",
+    "final_norm"[, "head"]}``, every block leaf stacked over layers, e.g.
+    ``blocks/sub0/attn/wq/w`` of shape (n_layers, d, H·hd)); equal bitwise.
+    """
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            dev, cfg.param_dtype)
+
+    def tree(t, i=None):
+        if isinstance(t, dict):
+            return {k: tree(v, i) for k, v in t.items()}
+        return leaf(t if i is None else np.asarray(t)[i])
+
+    stacked = params_np["blocks"]["sub0"]
+    out = {"embed": tree(params_np["embed"]),
+           "layers": [tree(stacked, i) for i in range(cfg.n_layers)],
+           "final_norm": tree(params_np["final_norm"])}
+    if not cfg.tie_embeddings:
+        out["head"] = tree(params_np["head"])
+    return out
+
+
+def generator_from_state(params_np, cfg: LMConfig, *,
+                         spec: PromptSpec | None = None,
+                         max_new_tokens: int = 16, temperature: float = 0.0,
+                         seed: int = 0,
+                         device: str | torch.device | None = None
+                         ) -> Generator:
+    """A `Generator` on ``device`` over the reference's weights
+    (`lm_params_from_state`), e.g. a JAX ``Generator``'s ``params``."""
+    dev = resolve_device(device)
+    return Generator(lm_params_from_state(params_np, cfg, dev), cfg,
+                     spec=spec, max_new_tokens=max_new_tokens,
+                     temperature=temperature, seed=seed, device=dev)
