@@ -32,6 +32,18 @@ path at full width and checks what comes out.  The phases, in order:
            1024 clusters), then `query` and `query_batch` of 16 requests
            perturbed from known anchor docs: every anchor in its top-10,
            decoded columns equal to the DB's
+  M        the sharded path: B's corpus built again with
+           `mesh=make_local_mesh(4)` (on one card the four shards share
+           it); bitwise against B: centroids and assignment, each row shard
+           against B's rows (pad rows zero), the hint, B's queries through
+           the same encrypted one-hots (answers, decoded columns) and their
+           top-k; the sharded plan tick makes no more synchronizing calls
+           than B's; one 5% commit (J = 51) on a sharded `LiveIndex`
+           against B's unsharded `stage_delta` / `stage_scatter` of the
+           same swap (not published on B); then `timing M`: one shard's
+           answer, hint and ΔH against their bounds, beside the four shards
+           together and B's one launch.  B's side of each check runs
+           outside M's launch counts.  M is freed before U
   U        phase B's system wrapped as a `LiveIndex`, two delta epochs:
            replaces in 5% of the clusters, then replaces, inserts and
            deletes over 25%; after each, the patched hint equals a fresh
@@ -51,8 +63,14 @@ path at full width and checks what comes out.  The phases, in order:
            equals a fresh setup() bitwise and the buckets' sub-DBs equal the
            host copy; served + failed == offered, every anchor in its
            top-10, one bucketed pass per served batch; then decoded columns
-           equal the sub-DBs' bytes.  U's and S's live index is then dropped
-           and its card memory must come back without the cycle collector
+           equal the sub-DBs' bytes; `P sharded` builds P's bucket layout
+           again over 4 shards from the host mirror and unsharded from the
+           card's DB (no hint but the smallest bucket's): sub-DBs, that
+           hint and one served batch's bucket answers equal, one grouped
+           launch per shard, and the shards' useful rows max/mean for the
+           sequential and the LPT layouts.  U's and S's live index is then
+           dropped and its card memory must come back without the cycle
+           collector
   K        keyed lookups at MIND's item-table width (1,000,000 rows of 64
            f32): `LiveIndex.build_keyed`, lookups through the serve loop's
            `submit_lookup`, one `replace_row` commit; rows equal table[ids]
@@ -113,8 +131,9 @@ path at full width and checks what comes out.  The phases, in order:
            pack is timed apart at U's shapes, and at J = 256 both layouts
            in turns; K's answer pass beside P's
 
-Launch counts are set to 0 just before each of phases B, U, S, P, K, G, Q,
-R and C and read just after it; every kernel of a path must have launched in
+Launch counts are set to 0 just before each of phases B, M, U, S, P, K, G,
+Q, R and C and read just after it (M's count leaves out the launches of
+its unsharded comparisons on B); every kernel of a path must have launched in
 it.
 Between them, phase B's k-means is run again and must repeat its
 assignment exactly, and one query_batch is traced with torch.profiler for
@@ -150,7 +169,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch import batchpir  # noqa: E402
-from repro_torch.batchpir.server import bucket_rows  # noqa: E402
+from repro_torch.batchpir.server import (BatchPIRServer,  # noqa: E402
+                                         bucket_rows)
 from repro_torch.configs import qwen3_4b  # noqa: E402
 from repro_torch.core import (chunking, clustering, pipeline, pir,  # noqa: E402
                               threefry)
@@ -158,9 +178,11 @@ from repro_torch.core.baselines import common as baseline_common  # noqa: E402
 from repro_torch.core.baselines import graph_pir, tiptoe  # noqa: E402
 from repro_torch.data import corpus as corpus_lib  # noqa: E402
 from repro_torch.data import metrics  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.kernels import (_build, bucketed_modmatmul,  # noqa: E402
                                  delta_gemm, modmatmul, ops, ref)
 from repro_torch.fleet import faults as faults_lib  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.rag import generate as rag_generate  # noqa: E402
 from repro_torch.rag import prompt as rag_prompt  # noqa: E402
@@ -185,7 +207,7 @@ FULL = dict(docs=1_000_000, emb_dim=128, topics=1024, clusters=1024,
             g_knn_rows=1000, q_docs=5000, q_emb_dim=384, q_text=(64, 256),
             q_queries=12, q_builds=3, r_docs=4000, r_emb_dim=48,
             r_topics=256, r_clusters=256, r_requests=16, r_batch=8,
-            r_budget=160, r_new=16, r_model="qwen3-4b")
+            r_budget=160, r_new=16, r_model="qwen3-4b", m_shards=4)
 #: p_hint_rows, k_hint_rows: the tallest bucket hint of phases P and K at
 #: these widths (902,656 and 336,128 rows), for the kernel phase's
 #: one-column u32 cases, which run before those phases.  g_docs: 700,000,
@@ -201,10 +223,13 @@ TINY = dict(docs=100, emb_dim=64, topics=8, clusters=16, queries=4,
             g_queries=3, g_sample_rows=8, g_knn_rows=50, q_docs=240,
             q_emb_dim=48, q_text=(16, 48), q_queries=3, q_builds=1,
             r_docs=100, r_emb_dim=64, r_topics=8, r_clusters=16,
-            r_requests=4, r_batch=2, r_budget=160, r_new=8, r_model="tiny")
+            r_requests=4, r_batch=2, r_budget=160, r_new=8, r_model="tiny",
+            m_shards=2)
 # r_*: phase R, `benchmarks/rag_bench.py`'s full shape (4,000 docs, d = 48,
 # 256 clusters, top-3, prompts of 160 tokens, 16 new tokens, batches of 8)
 # and the port's Qwen3-4B width; TINY keeps B's corpus and the tiny model.
+# m_shards: phase M's and P sharded's shard count (on one card all share
+# it; the rehearsal puts them on the CPU).
 
 #: full ticks served before the traced window of phases S and SP
 WINDOW_PRIME = 2
@@ -261,6 +286,8 @@ LIBRARY_NOTE = {
 #: the kernels each path must launch
 PATH_KERNELS = {
     "B": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign"),
+    "M": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign", "delta_gemm",
+          "add_delta"),
     "U": ("modmatmul_u8", "modmatmul_u32", "kmeans_assign", "delta_gemm",
           "add_delta"),
     "S": ("modmatmul_u8", "modmatmul_u32", "delta_gemm", "add_delta"),
@@ -804,6 +831,185 @@ def phase_b_breakdown(card, cfg, system, corp, queries):
         traced_batch_wall_ms=wall, device_kernel_ms=busy,
         device_idle_share=None if busy is None else 1.0 - busy / wall,
         top_kernels_ms=top)
+
+
+# --------------------------------------------------------------------------
+# the sharded path (M) on phase B's corpus
+# --------------------------------------------------------------------------
+
+def m_mesh(card, cfg):
+    """Phase M's mesh: ``m_shards`` shards over the visible cards (on one
+    card they all share it), or on the CPU in a rehearsal."""
+    n = cfg["m_shards"]
+    return make_local_mesh(n, devices=["cpu"] * n if card.rehearse else None)
+
+
+def _tops(tops):
+    return [[(d, s_, t) for d, s_, t in top] for top in tops]
+
+
+def phase_m(card, cfg, system, corp, queries):
+    """B's corpus built again row-sharded over ``m_shards`` shards, held
+    bitwise against B: clustering, row shards (pad rows zero), hint, B's
+    queries' answers, decoded columns and top-k through the same encrypted
+    queries, the plan's synchronizing calls, and one 5% commit on a
+    sharded `LiveIndex` against the unsharded `stage_delta` and
+    `stage_scatter` of the same swap on B's server (not published there).
+
+    B's side of the comparisons comes first (the encrypted queries, B's
+    answers, columns and plan tick); then the launch counts are set to 0,
+    only M's sharded calls run, and the counts are read right after them;
+    B's side of the swap and the `setup()` check come after the read.
+    Returns (M's system, its live index, the M line, M's launch counts)."""
+    mesh = m_mesh(card, cfg)
+    order = system._cluster_order(queries, 1)[:, 0]
+    client = pir.PIRClient(system.cfg, system.hint,
+                           a_mat=system.server.a_matrix)
+    qs, secrets = client.query_batch(_gen(card, 31), order.tolist())
+    ans_b = system.server.answer(qs)
+    want = client.recover_batch(ans_b, secrets)
+    # one plan tick (encode, answer, decode queued; nothing retired) under
+    # the sync counter, then completed
+    inflight = []
+    sync_b, _ = plan_sync_count(
+        card, lambda: inflight.append(system.query_batch_async(
+            queries, top_k=10, generator=_gen(card, 33))))
+    tops_b = inflight.pop().complete()
+
+    _reset_peak(card)
+    ops.reset_launch_counts()
+    m_sys = pipeline.PirRagSystem.build(
+        corp.texts, corp.embeddings, n_clusters=cfg["clusters"], mesh=mesh)
+    if not (np.array_equal(m_sys.centroids, system.centroids)
+            and np.array_equal(m_sys.assignment, system.assignment)):
+        raise AssertionError("phase M: sharded k-means != B's")
+    rows = m_sys.server.db[0].shape[0]
+    for s_, (part, dev) in enumerate(zip(m_sys.server.db, mesh.devices)):
+        ref_rows = system.server.db[s_ * rows:(s_ + 1) * rows]
+        if part.device != dev or not torch.equal(part[:ref_rows.shape[0]],
+                                                 ref_rows):
+            raise AssertionError(f"phase M: row shard {s_} != B's rows")
+        if part[ref_rows.shape[0]:].any():
+            raise AssertionError(f"phase M: row shard {s_} pad rows not 0")
+    if not torch.equal(m_sys.hint, system.hint):
+        raise AssertionError("phase M: sharded hint != B's")
+
+    ans = m_sys.server.answer(qs)
+    cols = pir.PIRClient(m_sys.cfg, m_sys.hint,
+                         a_mat=m_sys.server.a_matrix).recover_batch(
+                             ans, secrets)
+    if not (torch.equal(ans, ans_b) and torch.equal(cols, want)):
+        raise AssertionError("phase M: sharded answers or columns != B's")
+    del ans_b, want, ans, cols
+    sync_m, sites_m = plan_sync_count(
+        card, lambda: inflight.append(m_sys.query_batch_async(
+            queries, top_k=10, generator=_gen(card, 33))))
+    if _tops(inflight.pop().complete()) != _tops(tops_b):
+        raise AssertionError("phase M: sharded top-k != B's")
+    if sync_b is not None and sync_m > sync_b:
+        raise AssertionError(f"phase M: the sharded plan synchronized "
+                             f"{sync_m} times, B's {sync_b}: {sites_m}")
+
+    live = LiveIndex(m_sys, corp.texts, corp.embeddings)
+    rng = np.random.default_rng(41)
+    j1 = max(1, round(U_SHARES[0] * m_sys.db.n))
+    for d, _ in _stable_docs(live, corp, rng, j1):
+        live.replace(d, _revised(corp.texts[d], b"revM:"), corp.embeddings[d])
+    card.sync()
+    t0 = time.perf_counter()
+    patch = live.commit()
+    card.sync()
+    commit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if patch.is_full:
+        raise AssertionError("phase M: the 5% commit was a rebuild")
+
+    cols_t = torch.from_numpy(patch.cols).to(card.dev)
+    new_t = torch.from_numpy(
+        np.ascontiguousarray(m_sys.db.matrix[:, patch.cols])).to(card.dev)
+    hint_b = ops.add_delta(system.hint, system.server.stage_delta(
+        cols_t, new_t), impl=card.impl)
+    if not torch.equal(m_sys.hint, hint_b):
+        raise AssertionError("phase M: sharded patched hint != B's stage")
+    del hint_b
+    db_b = system.server.stage_scatter(cols_t, new_t)
+    for s_, part in enumerate(m_sys.server.db):
+        ref_rows = db_b[s_ * rows:(s_ + 1) * rows]
+        if not torch.equal(part[:ref_rows.shape[0]], ref_rows) or \
+                part[ref_rows.shape[0]:].any():
+            raise AssertionError(f"phase M: patched row shard {s_} != B's")
+    del db_b
+    if not torch.equal(m_sys.server.setup(), m_sys.hint):
+        raise AssertionError("phase M: patched hint != sharded setup()")
+    return m_sys, live, dict(
+        phase="M", mesh=str(mesh), shards=len(mesh.devices),
+        devices=[str(d) for d in mesh.devices], rows_per_shard=rows,
+        row_pad=m_sys.server._row_pad, m=m_sys.db.m, n=m_sys.db.n,
+        setup_seconds=m_sys.setup_seconds,
+        index_seconds=m_sys.index_seconds,
+        kmeans_seconds=m_sys.kmeans_seconds,
+        pack_seconds=m_sys.pack_seconds, hint_seconds=m_sys.hint_seconds,
+        clustering_equal_b=True, row_shards_equal_b=True,
+        pad_rows_zero=True, hint_equal_b=True, answers_equal_b=True,
+        columns_equal_b=True, topk_equal_b=True, queries=len(queries),
+        plan_sync_calls=sync_m, plan_sync_calls_b=sync_b,
+        plan_sync_sites=sites_m, commit_J=len(patch.cols),
+        commit_seconds=commit_s, patched_hint_equal_b_stage=True,
+        patched_db_equal_b_stage=True, patched_hint_equals_setup=True,
+        peak_bytes=_peak(card), b_bytes=held_bytes(system)), counts
+
+
+def m_timing(card, cfg, system, m_sys, queries):
+    """Per-shard kernel times of M against their bounds, beside the four
+    shards' launches together and B's one unsharded launch: the answer at
+    B's 16 queries, the hint and the 5% delta.  Shard 0's answer is held
+    bitwise against the plain version.  On one card the shards run one
+    after another on its SMs: this shows placement, not scaling."""
+    shards = m_sys.server.db
+    rows, n = shards[0].shape
+    k = system.cfg.params.k
+    client = pir.PIRClient(system.cfg, system.hint,
+                           a_mat=system.server.a_matrix)
+    qs, _ = client.query_batch(_gen(card, 34), list(range(len(queries))))
+    b = qs.shape[1]
+    err = u32_max_abs_err(ops.modmatmul(shards[0], qs, impl=card.impl),
+                          plain_modmatmul(shards[0], qs, cfg["plain_rows"]))
+    if err:
+        raise AssertionError(f"timing M: shard 0's answer, max err {err}")
+    a_mat = system.server.a_matrix
+    j = max(1, round(U_SHARES[0] * n))
+    gen = _gen(card, 35)
+    new, old = _u8(gen, (rows, j), card.dev), _u8(gen, (rows, j), card.dev)
+    a_j = a_mat[:j]
+    out = dict(phase="timing M", shards=len(shards), rows_per_shard=rows,
+               device=(torch.cuda.get_device_name(0) if card.dev.type ==
+                       "cuda" else "cpu"))
+    for op, one, each, whole, bytes_, ops_ in (
+            ("answer", lambda: ops.modmatmul(shards[0], qs, impl=card.impl),
+             lambda: collectives.row_shard_gemm(shards, qs, impl=card.impl),
+             lambda: ops.modmatmul(system.server.db, qs, impl=card.impl),
+             rows * n + 4 * n * b + 4 * rows * b, 2 * rows * n * b * 4),
+            ("hint", lambda: ops.hint_gemm(shards[0], a_mat, impl=card.impl),
+             lambda: collectives.row_shard_gemm(shards, a_mat,
+                                                impl=card.impl),
+             lambda: ops.hint_gemm(system.server.db, a_mat, impl=card.impl),
+             rows * n + 4 * n * k + 4 * rows * k, 2 * rows * n * k * 4),
+            ("delta", lambda: ops.delta_gemm(new, old, a_j, impl=card.impl),
+             lambda: collectives.row_shard_delta_gemm(
+                 [new] * len(shards), [old] * len(shards), a_j,
+                 impl=card.impl), None,
+             2 * rows * j + 4 * j * k + 4 * rows * k, 2 * rows * j * k * 8)):
+        reps = 2 if op == "hint" else 5
+        bound, by = _bound(bytes_, ops_, INT8_OPS_PER_S)
+        out[f"{op}_shard_ms"] = card.time_ms(one, reps=reps)
+        out[f"{op}_all_shards_ms"] = card.time_ms(each, reps=reps)
+        out[f"{op}_unsharded_ms"] = (None if whole is None
+                                     else card.time_ms(whole, reps=reps))
+        out[f"{op}_shard_bound_ms"] = bound
+        out[f"{op}_shard_bound_by"] = by
+    out.update(answer_shape=f"{rows}x{n}x{b}", hint_shape=f"{rows}x{n}x{k}",
+               delta_shape=f"{rows}x{j}x{k}", shard0_answer_max_abs_err=err)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1588,6 +1794,80 @@ def p_stacked(card, cfg, live):
                 stacked_encode_ms=enc_ms, stacked_decode_ms=dec_ms,
                 ciphertexts_equal=True, columns_equal_loop=True,
                 columns_equal_sub_dbs=True)
+
+
+def p_sharded(card, cfg, live):
+    """P's bucket layout (its partition, parameters and seeds) built again
+    as `enable_batch` builds it: over ``m_shards`` shards with each sub-DB
+    gathered from the host mirror onto the shard that owns it (LPT by
+    bucket height), and unsharded from the flat DB on the card.  Of the
+    bucket hints only the smallest bucket's is computed, through each
+    server's own `_hint` (P's 40.6 GB are not rebuilt).  The sub-DBs, that
+    hint and one served batch's bucket answers must be bitwise equal, with
+    one grouped launch per shard that owns a bucket; the line gives the
+    shards' useful rows max/mean for the sequential and the LPT layouts.
+    A sharded server's bucket patches run in the CPU tests only."""
+    system, bp = live.system, live.system.batch
+    n, kappa, shards = cfg["p_batch"], cfg["p_kappa"], cfg["m_shards"]
+    part = bp.partition
+    kw = dict(a_seed=bp.server.a_seed, impl=bp.server.impl)
+    rng = np.random.default_rng(28)
+    gen = _gen(card, 29)
+    qs, _ = bp.client.encrypt([bp.client.draw(
+        gen, rng.choice(part.n_clusters, kappa,
+                        replace=False).tolist()) for _ in range(n)])
+    flat = BatchPIRServer(system.server.db, system.db.used_bytes, part,
+                          bp.server.params, **kw)
+    small = min(range(part.n_buckets), key=lambda b: flat.cfgs[b].m)
+    want = flat.answer_batch(qs)
+    hint_want = flat._hint(small, flat.sub_dbs[small])
+    card.sync()
+    t0 = time.perf_counter()
+    server = BatchPIRServer(torch.from_numpy(system.db.matrix),
+                            system.db.used_bytes, part, bp.server.params,
+                            mesh=m_mesh(card, cfg), **kw)
+    card.sync()
+    build_s = time.perf_counter() - t0
+    for b, (x, y) in enumerate(zip(server.sub_dbs, flat.sub_dbs)):
+        if x.device != server.bucket_device(b) or not torch.equal(x, y):
+            raise AssertionError(f"P sharded: bucket {b}'s sub-DB != the "
+                                 f"unsharded build's")
+    del flat
+    if not torch.equal(server._hint(small, server.sub_dbs[small]),
+                       hint_want):
+        raise AssertionError(f"P sharded: bucket {small}'s hint on its "
+                             f"owner != the unsharded one")
+    del hint_want
+    before = ops.launch_counts()["bucketed_modmatmul"]
+    got = server.answer_batch(qs)
+    launches = ops.launch_counts()["bucketed_modmatmul"] - before
+    for b, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"P sharded: bucket {b}'s answer != the "
+                                 f"unsharded pass's")
+    owners = sum(1 for s_ in range(shards) if s_ in server.shard_of)
+    if card.impl == "cuda" and launches != owners:
+        raise AssertionError(f"P sharded: {launches} grouped launches for "
+                             f"{owners} shards")
+    heights = [cfg_.m for cfg_ in server.cfgs]
+    order = collectives.balanced_bucket_order(heights, shards)
+
+    def imbalance(loads):
+        return float(loads.max() / loads.mean())
+
+    return dict(phase="P sharded", shards=shards,
+                n_buckets=len(heights), clients=n, owner=server.shard_of,
+                sharded_build_seconds=build_s, grouped_launches=launches,
+                sub_dbs_equal_unsharded=True, hint_bucket=small,
+                hint_equal_unsharded=True, answers_equal_unsharded=True,
+                sequential_rows=collectives.shard_row_loads(
+                    heights, shards).tolist(),
+                lpt_rows=collectives.shard_row_loads(
+                    heights, shards, order).tolist(),
+                sequential_max_over_mean=imbalance(
+                    collectives.shard_row_loads(heights, shards)),
+                lpt_max_over_mean=imbalance(
+                    collectives.shard_row_loads(heights, shards, order)))
 
 
 def allocated(card):
@@ -2938,6 +3218,15 @@ def main(argv=None) -> int:
     emit(phase="launches B", **paths["B"])
     emit(**phase_b_breakdown(card, cfg, system, corp, queries))
 
+    # phase M sets the counts to 0 and reads them around its own path
+    m_sys, m_live, line_m, paths["M"] = phase_m(card, cfg, system, corp,
+                                                queries)
+    emit(**line_m)
+    emit(phase="launches M", **paths["M"])
+    emit(**m_timing(card, cfg, system, m_sys, queries))
+    del m_sys, m_live
+    _free(card)                           # M's card memory goes before U
+
     ops.reset_launch_counts()
     live, lines_u = phase_u(card, cfg, system, corp)
     paths["U"] = ops.launch_counts()
@@ -2985,6 +3274,7 @@ def main(argv=None) -> int:
     emit(**line_pp)
     emit(phase="launches PP", **paths["PP"])
     emit(**p_stacked(card, cfg, live))
+    emit(**p_sharded(card, cfg, live))
     # U's, S's and P's live index holds no reference cycle: dropping it
     # returns its card memory with the cycle collector off
     gc.disable()

@@ -9,6 +9,8 @@ wraparound, arithmetic ``>>`` or ``%`` of negative values.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -26,6 +28,15 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run on the CPU")
     return dev
+
+
+def on_device(device: torch.device):
+    """Context making ``device`` the current CUDA device (nothing on the
+    CPU): the port's kernels launch on the current device's stream, so a
+    shard on another card must be launched from inside it."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def sync(device: torch.device) -> None:

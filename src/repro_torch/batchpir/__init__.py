@@ -1,5 +1,5 @@
 """Batch-PIR subsystem: κ private cluster fetches in one database pass
-(twin of ``repro/batchpir``, on one device).
+(twin of ``repro/batchpir``).
 
   partition — public 3-way cuckoo bucketization of the cluster axis
   server    — per-bucket replica sub-DBs + hints, one-pass batched answer
@@ -45,17 +45,19 @@ class BatchPIR:
 
 def build(matrix: torch.Tensor, used_bytes: np.ndarray, params, *,
           kappa: int = 8, n_buckets: int | None = None, seed: int = 101,
-          a_seed: int = 7, impl: str = "auto") -> BatchPIR:
+          a_seed: int = 7, impl: str = "auto", mesh=None) -> BatchPIR:
     """Bucketize a chunk-transposed DB and hint every bucket (offline).
 
     ``matrix`` is the (m, n) uint8 DB on the device the buckets live on
     (a system's ``server.db``); the sub-DBs are gathered from it there.
+    With ``mesh=`` the buckets spread over the mesh's shards (`matrix`
+    may then be a host tensor) and the answers stay bitwise the same.
     """
     t0 = time.perf_counter()
     n_buckets = n_buckets if n_buckets is not None else 3 * kappa
     part = CuckooPartition.build(matrix.shape[1], n_buckets, seed)
     server = BatchPIRServer(matrix, used_bytes, part, params,
-                            a_seed=a_seed, impl=impl)
+                            a_seed=a_seed, impl=impl, mesh=mesh)
     server.install_hints()
     client = BatchPIRClient.from_server(server)
     sync(server.device)

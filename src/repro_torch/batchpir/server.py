@@ -1,5 +1,5 @@
-"""Batch-PIR server on one device: per-bucket sub-DBs, hints and the
-one-pass answer (twin of ``repro/batchpir/server.py``, without the mesh).
+"""Batch-PIR server: per-bucket sub-DBs, hints and the one-pass answer
+(twin of ``repro/batchpir/server.py``).
 
 Bucket b's sub-DB D_b holds a replica of every member cluster's column,
 row-truncated to the tallest member payload (rounded to the row granule):
@@ -13,6 +13,16 @@ bucket-specific seed and hint H_b = D_b·A_b.  A batched query is one u32
 vector per bucket; the answer is ONE `ops.bucketed_modmatmul` call, which
 on a card is one launch of the grouped kernel over the buckets' own
 heights.
+
+With ``mesh=`` (a `launch.mesh.DeviceMesh`) whole buckets spread over the
+mesh's shards, longest first to the least-loaded shard
+(`collectives.balanced_bucket_order`): each sub-DB lives on its owner's
+device, an answer is one grouped launch per shard over its own ragged list
+of buckets (`collectives.bucket_shard_gemm`), and the answers, the hints
+and the public matrices the client reads stay on the mesh's home device.
+A bucket keeps its owner when an overflow rebuilds it.  The JAX twin pads
+every bucket to the tallest and stacks them; the grouped kernel walks the
+ragged buckets as they are, so nothing is padded.
 
 Live-index deltas route here through `update/routing.py`: a mutation that
 re-packs cluster columns J patches the owning buckets' sub-DBs and hints
@@ -29,8 +39,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch._common import on_device
 from repro_torch.batchpir.partition import CuckooPartition
 from repro_torch.core import lwe, pir
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 
 _ROW_GRANULE = 128          # bucket heights round up to this (the JAX tiling)
@@ -85,12 +97,12 @@ class StagedBucketPatch:
 
 
 class BatchPIRServer:
-    """Holds the bucketed replica DBs on one device and answers batched
-    queries there."""
+    """Holds the bucketed replica DBs on one device (or spread over a
+    mesh's shards) and answers batched queries there."""
 
     def __init__(self, matrix: torch.Tensor, used_bytes: np.ndarray,
                  partition: CuckooPartition, params: lwe.LWEParams, *,
-                 a_seed: int = 7, impl: str = "auto"):
+                 a_seed: int = 7, impl: str = "auto", mesh=None):
         n = partition.n_clusters
         if matrix.dim() != 2 or matrix.shape[1] != n:
             raise ValueError(f"matrix {tuple(matrix.shape)} does not have "
@@ -98,7 +110,7 @@ class BatchPIRServer:
         self.partition = partition
         self.impl = impl
         self.a_seed = a_seed
-        self.device = matrix.device
+        self.device = matrix.device if mesh is None else mesh.home
         if not lwe.noise_budget_ok(params, partition.width):
             params = lwe.choose_params(partition.width,
                                        q_switch=params.q_switch)
@@ -107,20 +119,46 @@ class BatchPIRServer:
         self.sub_dbs: list[torch.Tensor] = []
         self._a_mats: list[torch.Tensor | None] = []
         heights = bucket_rows(partition, used_bytes, matrix.shape[0])
+        self._place(mesh, heights)
         for b, rows in enumerate(heights):
             mem = partition.members[b]
             sub = torch.zeros((rows, partition.width), dtype=torch.uint8,
-                              device=self.device)
+                              device=self.bucket_device(b))
             if len(mem):
                 idx = torch.as_tensor(mem, dtype=torch.int64,
-                                      device=self.device)
-                sub[:, :len(mem)] = matrix[:rows].index_select(1, idx)
+                                      device=matrix.device)
+                sub[:, :len(mem)] = matrix[:rows].index_select(1, idx).to(
+                    sub.device)
             self.sub_dbs.append(sub)
             self.cfgs.append(pir.PIRConfig(
                 m=rows, n=partition.width, params=self.params,
                 a_seed=_bucket_a_seed(a_seed, b), impl=impl))
             self._a_mats.append(None)
         self.hints: list[torch.Tensor] = []
+
+    # -- placement -----------------------------------------------------------
+
+    def _place(self, mesh, heights: list[int]) -> None:
+        """Each bucket's owner shard (LPT over the bucket heights on a mesh,
+        the one device otherwise) and each shard's buckets, in order."""
+        self.mesh = mesh
+        self._devices = [self.device] if mesh is None else list(mesh.devices)
+        shards = len(self._devices)
+        order = collectives.balanced_bucket_order(heights, shards)
+        per = len(order) // shards
+        self.shard_of = [0] * len(heights)
+        for slot, b in enumerate(order):
+            if b < len(heights):            # not a zero-height pad bucket
+                self.shard_of[b] = slot // per
+        self._groups = [[b for b in range(len(heights))
+                         if self.shard_of[b] == s] for s in range(shards)]
+        self._group_idx = [torch.as_tensor(g, dtype=torch.int64,
+                                           device=self.device)
+                           for g in self._groups]
+
+    def bucket_device(self, bucket: int) -> torch.device:
+        """The device bucket b's sub-DB lives on."""
+        return self._devices[self.shard_of[bucket]]
 
     # -- public matrices / hints --------------------------------------------
 
@@ -132,10 +170,20 @@ class BatchPIRServer:
                 cfg.a_seed, cfg.n, cfg.params.k, device=self.device)
         return self._a_mats[bucket]
 
+    def _local_a(self, bucket: int) -> torch.Tensor:
+        """A_b on the device of bucket b's sub-DB."""
+        return self.a_matrix(bucket).to(self.bucket_device(bucket))
+
+    def _hint(self, bucket: int, sub: torch.Tensor) -> torch.Tensor:
+        """H_b = sub·A_b, computed where ``sub`` lives, on the home
+        device."""
+        with on_device(sub.device):
+            hint = ops.hint_gemm(sub, self._local_a(bucket), impl=self.impl)
+        return hint.to(self.device)
+
     def setup(self) -> list[torch.Tensor]:
         """Recompute every bucket hint H_b = D_b·A_b from the current DBs."""
-        return [ops.hint_gemm(self.sub_dbs[b], self.a_matrix(b),
-                              impl=self.impl)
+        return [self._hint(b, self.sub_dbs[b])
                 for b in range(self.partition.n_buckets)]
 
     def install_hints(self) -> int:
@@ -167,8 +215,18 @@ class BatchPIRServer:
 
     def answer_batch(self, qs: torch.Tensor) -> list[torch.Tensor]:
         """qs: (B, W) or (B, W, C) int32-held u32 → per-bucket answers,
-        modulus-switched when configured.  One bucketed product."""
-        raw = ops.bucketed_modmatmul(self.sub_dbs, qs, impl=self.impl)
+        modulus-switched when configured.  One bucketed product per shard
+        (one in all without a mesh), the answers back in bucket order."""
+        one = len(self._groups) == 1           # every bucket, in order
+        per_shard = collectives.bucket_shard_gemm(
+            [[self.sub_dbs[b] for b in g] for g in self._groups],
+            [qs.to(dev) if one else qs.index_select(0, idx).to(dev)
+             for idx, dev in zip(self._group_idx, self._devices)],
+            impl=self.impl)
+        raw: list[torch.Tensor] = [None] * len(self.sub_dbs)
+        for group, answers in zip(self._groups, per_shard):
+            for b, a in zip(group, answers):
+                raw[b] = a.to(self.device)
         if self.params.q_switch is not None:
             raw = [lwe.switch_modulus(a, self.params.q_switch) for a in raw]
         return raw
@@ -228,10 +286,11 @@ class BatchPIRServer:
                 continue
             pos = np.array([part.position(b, int(cols[i])) for i in idxs],
                            np.int64)
-            pos_t = torch.from_numpy(pos).to(self.device)
+            dev = self.bucket_device(b)
+            pos_t = torch.from_numpy(pos).to(dev)
             sel = torch.as_tensor(idxs, dtype=torch.int64,
-                                  device=self.device)
-            new_sub = new_cols[:rows].index_select(1, sel)
+                                  device=new_cols.device)
+            new_sub = new_cols[:rows].index_select(1, sel).to(dev)
             delta_h = self._delta(b, pos_t, new_sub)   # reads OLD sub-DB
             if donate:
                 deferred.append((b, pos_t, new_sub))
@@ -241,7 +300,8 @@ class BatchPIRServer:
             if self.hints:
                 # ΔH_b is transient, so the add writes into ITS buffer; the
                 # live hint stays intact for in-flight decode snapshots
-                new_hints[b] = ops.add_delta(self.hints[b], delta_h,
+                new_hints[b] = ops.add_delta(self.hints[b],
+                                             delta_h.to(self.device),
                                              impl=self.impl)
             updates.append(BucketUpdate(bucket=b, rebuilt=False, cols=pos))
 
@@ -264,8 +324,9 @@ class BatchPIRServer:
         twin pads the column count to a power of two with column 0 on both
         sides, which adds exactly 0; the port does not pad."""
         old_sub = self.sub_dbs[bucket].index_select(1, pos)
-        a_p = self.a_matrix(bucket).index_select(0, pos)
-        return ops.delta_gemm(new_sub, old_sub, a_p, impl=self.impl)
+        a_p = self._local_a(bucket).index_select(0, pos)
+        with on_device(old_sub.device):
+            return ops.delta_gemm(new_sub, old_sub, a_p, impl=self.impl)
 
     def _stage_rebuild_bucket(self, bucket: int, cols: np.ndarray,
                               new_cols: torch.Tensor,
@@ -298,22 +359,21 @@ class BatchPIRServer:
                 need[j] = new_used[j]
                 replaced.append((mem.index(j), idx))
         rows = _round_rows(max(need.values(), default=1))
-        sub = torch.zeros((rows, part.width), dtype=torch.uint8,
-                          device=self.device)
+        dev = self.bucket_device(bucket)
+        sub = torch.zeros((rows, part.width), dtype=torch.uint8, device=dev)
         take = min(rows, old_rows)
         sub[:take, :len(mem)] = old[:take, :len(mem)]
         if replaced:
             pos = torch.as_tensor([p for p, _ in replaced], dtype=torch.int64,
-                                  device=self.device)
+                                  device=dev)
             src = torch.as_tensor([i for _, i in replaced], dtype=torch.int64,
-                                  device=self.device)
+                                  device=new_cols.device)
             take = min(rows, new_cols.shape[0])
             fresh = torch.zeros((rows, len(replaced)), dtype=torch.uint8,
-                                device=self.device)
-            fresh[:take] = new_cols[:take].index_select(1, src)
+                                device=dev)
+            fresh[:take] = new_cols[:take].index_select(1, src).to(dev)
             sub.index_copy_(1, pos, fresh)
         # A_b depends only on (n, k), so it survives the row-budget change.
         cfg = dataclasses.replace(self.cfgs[bucket], m=rows)
-        hint = (ops.hint_gemm(sub, self.a_matrix(bucket), impl=self.impl)
-                if self.hints else None)
+        hint = self._hint(bucket, sub) if self.hints else None
         return sub, cfg, hint

@@ -12,9 +12,13 @@ live index and the port's give the same patches, DB bytes and hints.
 ``n_buckets`` and the partition ``seed``, e.g. ``sys.batch.kappa``,
 ``sys.batch.partition.n_buckets``, ``sys.batch.seed``) fix the cuckoo
 placement, so the sub-DBs, bucket hints and answers equal the reference's
-too.  `tiptoe_from_state` and `graph_from_state` carry the baselines'
-k-means outcome across the same way (their only float draws), so the
-port's cluster matrices, hints and search results equal the reference's.
+too.  ``mesh=`` (a `launch.mesh.DeviceMesh`) packs and serves the same
+state row-sharded, so the reference's clustering carries onto a sharded
+port system; a keyed system has no float draws to carry and is built with
+`PirRagSystem.build_keyed` directly.  `tiptoe_from_state` and
+`graph_from_state` carry the baselines' k-means outcome across the same
+way (their only float draws), so the port's cluster matrices, hints and
+search results equal the reference's.
 `lm_params_from_state` and `generator_from_state` carry a decoder LM's
 weights across: the reference's ``transformer.init`` tree as numpy (blocks
 stacked over layers for its scan) becomes the port's per-layer tree,
@@ -31,7 +35,7 @@ import torch
 from repro_torch._common import resolve_device
 from repro_torch.core.baselines.graph_pir import GraphPIRSystem
 from repro_torch.core.baselines.tiptoe import TiptoeSystem
-from repro_torch.core.pipeline import PirRagSystem
+from repro_torch.core.pipeline import PirRagSystem, mesh_device
 from repro_torch.models.transformer import LMConfig
 from repro_torch.rag.generate import Generator
 from repro_torch.rag.prompt import PromptSpec
@@ -44,17 +48,18 @@ def system_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
                       q_switch: int | None = 1 << 16, impl: str = "auto",
                       doc_ids: Sequence[int] | None = None,
                       batch: dict | None = None,
-                      device: str | torch.device | None = None
-                      ) -> PirRagSystem:
-    """A `PirRagSystem` on ``device`` from a finished clustering; with
-    ``batch`` (`PirRagSystem.enable_batch` keywords) batch-PIR enabled."""
-    dev = resolve_device(device)
+                      device: str | torch.device | None = None,
+                      mesh=None) -> PirRagSystem:
+    """A `PirRagSystem` on ``device`` (row-sharded over ``mesh``) from a
+    finished clustering; with ``batch`` (`PirRagSystem.enable_batch`
+    keywords) batch-PIR enabled."""
+    dev = mesh_device(mesh, device)
     system = PirRagSystem._from_parts(
         texts, np.asarray(embeddings, np.float32),
         np.asarray(centroids, np.float32), np.asarray(assignment),
         n_clusters, a_seed=int(a_seed), chunk_size=chunk_size,
         q_switch=q_switch, impl=impl, device=dev, t0=time.perf_counter(),
-        doc_ids=doc_ids)
+        doc_ids=doc_ids, mesh=mesh)
     if batch is not None:
         system.enable_batch(**batch)
     return system
@@ -68,17 +73,19 @@ def live_from_state(texts: Sequence[bytes], embeddings: np.ndarray, *,
                     max_pad_fraction: float = 0.95, chunk_size: int = 256,
                     q_switch: int | None = 1 << 16, impl: str = "auto",
                     batch: dict | None = None,
-                    device: str | torch.device | None = None) -> LiveIndex:
+                    device: str | torch.device | None = None,
+                    mesh=None) -> LiveIndex:
     """A port `LiveIndex` over `system_from_state`'s system.
 
     Full rebuilds of the returned index run the port's own `build` on
-    ``device`` with the same chunk size, modulus switch and ``impl``.
+    ``device`` (on ``mesh``, sharded) with the same chunk size, modulus
+    switch and ``impl``.
     """
     system = system_from_state(
         texts, embeddings, centroids=centroids, assignment=assignment,
         n_clusters=n_clusters, a_seed=a_seed, chunk_size=chunk_size,
         q_switch=q_switch, impl=impl, doc_ids=doc_ids, batch=batch,
-        device=device)
+        device=device, mesh=mesh)
     return LiveIndex(system, texts, embeddings, doc_ids=doc_ids,
                      max_pad_fraction=max_pad_fraction,
                      compact_every=compact_every)

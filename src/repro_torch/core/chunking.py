@@ -12,9 +12,17 @@ Per-document record (little-endian):
 Column layout: [n_docs : u32][record ...][zero padding to m rows], with
 m = max serialized cluster size rounded up to ``chunk_size``.
 
+Packing serializes every document at once (`column_payloads`: one
+`quantize_rows` over the corpus, every header in one array), byte for byte
+as `pack_column` does one document at a time.  For a row-sharded server
+(`build_chunked_db(n_row_shards=S)`) the rows pad to a multiple of S and
+``ChunkedDB.row_shards`` holds S equal row slices of one allocation, which
+the server places each on its own device.
+
 The live index re-packs only the clusters a mutation batch touches
-(`rebuild_columns`); `ColumnOverflowError` is its signal that a column no
-longer fits in m rows and the index must be rebuilt.
+(`rebuild_columns`, through the same helper); `ColumnOverflowError` is its
+signal that a column no longer fits in m rows and the index must be
+rebuilt.
 
 `quantize_rows` and `doc_records` serialize every document at once, byte
 for byte as `quantize_embedding` and `serialize_doc` do one at a time: one
@@ -54,7 +62,13 @@ class ColumnOverflowError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class ChunkedDB:
-    """The chunk-transposed corpus: one uint8 byte column per cluster."""
+    """The chunk-transposed corpus: one uint8 byte column per cluster.
+
+    ``matrix`` is the (m, n) host view.  Packed for S row shards,
+    ``row_shards`` holds S equal-height row slices ((m_pad/S, n) each, the
+    pad rows zero) that are views of the same allocation, so an in-place
+    column patch of ``matrix`` shows through them.
+    """
     matrix: np.ndarray            # (m, n) uint8, chunk-transposed
     emb_dim: int
     chunk_size: int
@@ -62,6 +76,7 @@ class ChunkedDB:
     cluster_sizes: np.ndarray     # (n,) docs per cluster
     pad_fraction: float           # wasted bytes / total bytes (reported)
     used_bytes: np.ndarray        # (n,) serialized bytes per column
+    row_shards: tuple[np.ndarray, ...] | None = None  # S × (m_pad/S, n)
 
     @property
     def m(self) -> int:
@@ -213,6 +228,48 @@ def pack_column(docs: Sequence[DocTriple]) -> bytes:
     return b"".join(parts)
 
 
+def column_payloads(texts: Sequence[bytes], embeddings: np.ndarray,
+                    doc_ids: np.ndarray, columns: np.ndarray, n_columns: int
+                    ) -> list[bytes]:
+    """Every column's `pack_column` payload, with the records serialized
+    at once.
+
+    Document i (text, embedding row i, id ``doc_ids[i]``) goes to column
+    ``columns[i]``; within a column the records are in ascending doc id,
+    ties in input order, as `pack_column`'s stable sort leaves them.  The
+    embeddings are quantized as float32 (`quantize_rows`), so the bytes are
+    `pack_column`'s for float32 embeddings.
+    """
+    ids = np.asarray(doc_ids)
+    columns = np.asarray(columns)
+    n = len(ids)
+    embs = np.asarray(embeddings, np.float32)
+    d = embs.shape[1]
+    order = np.lexsort((ids, columns))      # by column, then doc id (stable)
+    q, scale, off = quantize_rows(embs)
+    fixed = np.empty((n, _HDR + d), np.uint8)
+    hdr = np.empty((n, 4), "<u4")
+    hdr[:, 0] = ids.astype(np.uint32)
+    hdr[:, 1] = np.fromiter(map(len, texts), np.int64, n)
+    hdr[:, 2] = scale.view("<u4")
+    hdr[:, 3] = off.view("<u4")
+    fixed[:, :_HDR] = hdr.view(np.uint8)
+    fixed[:, _HDR:] = q
+    rows = fixed[order].tobytes()           # records' fixed parts, in order
+    w = _HDR + d
+    bounds = np.concatenate(
+        [[0], np.cumsum(np.bincount(columns, minlength=n_columns))])
+    payloads = []
+    for j in range(n_columns):
+        lo, hi = int(bounds[j]), int(bounds[j + 1])
+        parts: list[bytes] = [None] * (2 * (hi - lo) + 1)
+        parts[0] = _U32.pack(hi - lo)
+        parts[1::2] = [rows[r * w:(r + 1) * w] for r in range(lo, hi)]
+        parts[2::2] = [texts[i] for i in order[lo:hi]]
+        payloads.append(b"".join(parts))
+    return payloads
+
+
 def rebuild_columns(m: int, docs_by_col: Mapping[int, Sequence[DocTriple]]
                     ) -> tuple[np.ndarray, np.ndarray, dict[int, int]]:
     """Re-serialize the given clusters into fresh m-row columns.
@@ -223,10 +280,17 @@ def rebuild_columns(m: int, docs_by_col: Mapping[int, Sequence[DocTriple]]
     same documents (`pack_column` orders them by doc id).
     """
     cols = np.asarray(sorted(docs_by_col), np.int64)
+    docs = [(idx, doc) for idx, j in enumerate(cols)
+            for doc in docs_by_col[int(j)]]
+    embs = (np.stack([e for _, (_, e, _) in docs]) if docs
+            else np.zeros((0, 1), np.float32))
+    payloads = column_payloads(
+        [t for _, (_, _, t) in docs], embs,
+        np.asarray([i for _, (i, _, _) in docs], np.int64),
+        np.asarray([idx for idx, _ in docs], np.int64), len(cols))
     out = np.zeros((m, len(cols)), np.uint8)
     used: dict[int, int] = {}
-    for idx, j in enumerate(cols):
-        payload = pack_column(docs_by_col[int(j)])
+    for idx, (j, payload) in enumerate(zip(cols, payloads)):
         if len(payload) > m:
             raise ColumnOverflowError(int(j), len(payload), m)
         out[:len(payload), idx] = np.frombuffer(payload, np.uint8)
@@ -237,35 +301,45 @@ def rebuild_columns(m: int, docs_by_col: Mapping[int, Sequence[DocTriple]]
 def build_chunked_db(texts: Sequence[bytes], embeddings: np.ndarray,
                      assignment: np.ndarray, n_clusters: int,
                      chunk_size: int = 256,
-                     doc_ids: Sequence[int] | None = None) -> ChunkedDB:
+                     doc_ids: Sequence[int] | None = None, *,
+                     n_row_shards: int = 1) -> ChunkedDB:
     """Pack the corpus into the chunk-transposed uint8 matrix.
 
-    ``doc_ids`` (default: positional 0..N-1) keeps external document ids.
+    ``doc_ids`` (default: positional 0..N−1) keeps external document ids.
+    ``n_row_shards=S`` packs for a row-sharded server: rows pad up to a
+    multiple of S with zeros and ``row_shards`` holds the S row slices.
+    The packed bytes are the same for every S, and ``matrix`` is always
+    the unpadded (m, n) view.
     """
     n_docs, emb_dim = embeddings.shape
     ids = np.arange(n_docs) if doc_ids is None else np.asarray(doc_ids)
     if len(texts) != n_docs or len(ids) != n_docs:
         raise ValueError(f"{len(texts)} texts and {len(ids)} ids for "
                          f"{n_docs} embeddings")
+    if n_row_shards < 1:
+        raise ValueError(f"n_row_shards must be >= 1, got {n_row_shards}")
     assignment = np.asarray(assignment)
-    # members of each cluster in ascending row order, one stable sort
-    order = np.argsort(assignment, kind="stable")
-    bounds = np.searchsorted(assignment[order], np.arange(n_clusters + 1))
-    columns = [pack_column([(int(ids[i]), embeddings[i], texts[i])
-                            for i in order[bounds[j]:bounds[j + 1]]])
-               for j in range(n_clusters)]
+    columns = column_payloads(texts, embeddings, ids, assignment, n_clusters)
     sizes = np.bincount(assignment, minlength=n_clusters).astype(np.int64)
 
     raw = max(len(c) for c in columns)
     m = ((raw + chunk_size - 1) // chunk_size) * chunk_size
+    m_pad = m + (-m) % n_row_shards
     # fill column-major (each payload one contiguous write), then transpose
-    cols = np.zeros((n_clusters, m), np.uint8)
+    cols = np.zeros((n_clusters, m_pad), np.uint8)
     used = np.asarray([len(c) for c in columns], np.int64)
     for j, c in enumerate(columns):
         cols[j, :len(c)] = np.frombuffer(c, np.uint8)
     full = np.ascontiguousarray(cols.T)
+    del cols
+    rows_per = m_pad // n_row_shards
+    shards = (tuple(full[s * rows_per:(s + 1) * rows_per]
+                    for s in range(n_row_shards))
+              if n_row_shards > 1 else None)
 
     pad_frac = 1.0 - int(used.sum()) / float(m * n_clusters)
-    return ChunkedDB(matrix=full, emb_dim=emb_dim, chunk_size=chunk_size,
+    return ChunkedDB(matrix=full if m_pad == m else full[:m],
+                     emb_dim=emb_dim, chunk_size=chunk_size,
                      n_docs=n_docs, cluster_sizes=sizes,
-                     pad_fraction=pad_frac, used_bytes=used)
+                     pad_fraction=pad_frac, used_bytes=used,
+                     row_shards=shards)

@@ -15,18 +15,36 @@ runs in full fp32: torch leaves TF32 off for matmul unless a caller turns
 kmeans++ draws come from a torch generator, so they are not JAX's draws;
 `_lloyd` takes the initial centroids as an argument, which lets a test start
 it from the JAX package's own kmeans++ output.
+
+One core (`_kmeans_core`) serves one device and a row-sharded corpus
+(`kmeans_fit_sharded`, over a `launch.mesh.DeviceMesh`): each shard owns a
+contiguous run of the canonical blocks, kmeans++ samples the gathered
+global D² on the generator's device, and each Lloyd step gathers the
+per-block partials in shard order and reduces them there as one device
+does, so a sharded fit is bitwise the unsharded fit at the same block
+count.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch._common import on_device
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 
 #: Canonical number of corpus row blocks used by the offline build.
 BUILD_BLOCKS = 8
+
+
+def build_blocks(shards: int) -> int:
+    """The offline build's block count over ``shards`` row shards: the
+    fewest blocks that both `BUILD_BLOCKS` and ``shards`` divide, so each
+    shard owns whole blocks (`BUILD_BLOCKS` itself unsharded)."""
+    return math.lcm(BUILD_BLOCKS, shards)
 
 
 class KMeansResult(NamedTuple):
@@ -51,25 +69,56 @@ def _pad_rows(x: torch.Tensor, mult: int) -> tuple[torch.Tensor, torch.Tensor]:
     return x, torch.arange(n + pad, device=x.device) < n
 
 
-def _kmeanspp(gen: torch.Generator, x: torch.Tensor, valid: torch.Tensor,
-              k: int, n: int) -> torch.Tensor:
-    """D²-weighted seeding (Arthur & Vassilvitskii) with torch draws.
+def _fetch_row(xs: list[torch.Tensor], idx: torch.Tensor,
+               home: torch.device) -> torch.Tensor:
+    """Row ``idx`` ((1,) on ``home``) of the row-sharded corpus, as (1, d)
+    on ``home``.  Every shard offers its candidate row and the owner's is
+    selected by `torch.where`, which is exact; nothing waits on the host."""
+    if len(xs) == 1:
+        return xs[0].index_select(0, idx.to(xs[0].device)).to(home)
+    row, lo = None, 0
+    for x in xs:
+        rows = x.shape[0]
+        local = (idx - lo).clamp(0, rows - 1).to(x.device)
+        cand = x.index_select(0, local).to(home)
+        own = ((idx >= lo) & (idx < lo + rows))[:, None]
+        row = cand if row is None else torch.where(own, cand, row)
+        lo += rows
+    return row
 
-    x: (rows, d) f32, padded; valid masks padding rows out of the draw.
-    Every draw stays on the device: no host round-trip per step.
+
+def _kmeanspp_core(gen: torch.Generator, xs: list[torch.Tensor],
+                   valids: list[torch.Tensor], k: int, n: int
+                   ) -> torch.Tensor:
+    """D²-weighted seeding (Arthur & Vassilvitskii) over row shards.
+
+    xs: the padded corpus's row shards (one on the unsharded path); valids
+    mask padding rows out of the draw.  Each draw samples the gathered
+    global D² on ``gen``'s device, so every layout draws from the same
+    tensor.  Every draw stays on the device: no host round-trip per step.
     """
-    first = torch.randint(0, n, (1,), generator=gen, device=x.device)
-    c = x.index_select(0, first)
-    mind2 = torch.sum((x - c) ** 2, dim=1)
-    cents = x.new_zeros((k, x.shape[1]))
+    home = gen.device
+    first = torch.randint(0, n, (1,), generator=gen, device=home)
+    c = _fetch_row(xs, first, home)
+    mind2 = [torch.sum((x - c.to(x.device)) ** 2, dim=1) for x in xs]
+    cents = c.new_zeros((k, c.shape[1]))
     cents[0] = c[0]
     for i in range(1, k):
-        w = torch.where(valid, mind2 + 1e-12, torch.zeros_like(mind2))
+        w = collectives.gather(
+            [torch.where(v, m + 1e-12, torch.zeros_like(m))
+             for v, m in zip(valids, mind2)], home)
         idx = torch.multinomial(w, 1, generator=gen)
-        c = x.index_select(0, idx)
+        c = _fetch_row(xs, idx, home)
         cents[i] = c[0]
-        mind2 = torch.minimum(mind2, torch.sum((x - c) ** 2, dim=1))
+        mind2 = [torch.minimum(m, torch.sum((x - c.to(x.device)) ** 2, dim=1))
+                 for x, m in zip(xs, mind2)]
     return cents
+
+
+def _kmeanspp(gen: torch.Generator, x: torch.Tensor, valid: torch.Tensor,
+              k: int, n: int) -> torch.Tensor:
+    """`_kmeanspp_core` on one device: x (rows, d) f32, padded."""
+    return _kmeanspp_core(gen, [x], [valid], k, n)
 
 
 def _block_stats(xb: torch.Tensor, vb: torch.Tensor, cents: torch.Tensor,
@@ -85,31 +134,61 @@ def _block_stats(xb: torch.Tensor, vb: torch.Tensor, cents: torch.Tensor,
     return sums, cnts, w
 
 
-def _lloyd(x: torch.Tensor, valid: torch.Tensor, cents0: torch.Tensor, *,
-           k: int, iters: int, blocks: int, n: int, impl: str):
-    """``iters`` block-canonical Lloyd steps from ``cents0``.
+def _lloyd_core(xs: list[torch.Tensor], valids: list[torch.Tensor],
+                cents0: torch.Tensor, *, k: int, iters: int, blocks: int,
+                n: int, impl: str):
+    """``iters`` block-canonical Lloyd steps from ``cents0`` over row
+    shards, each of ``blocks`` blocks (the local block count).
 
-    x: (rows, d) f32 with rows divisible by ``blocks``; valid: (rows,) bool.
-    Empty clusters keep their centroid.  Returns (centroids, assignment
-    (rows,) i32 against the final centroids, final-step inertia).
+    Each shard computes its blocks' partials on its device; they gather in
+    shard order, which is canonical block order, and reduce on
+    ``cents0``'s device exactly as one device reduces them.  Empty clusters
+    keep their centroid.  Returns (centroids, assignment (rows,) i32
+    against the final centroids, gathered, final-step inertia).
     """
-    rows, d = x.shape
-    xb = x.reshape(blocks, rows // blocks, d)
-    vb = valid.reshape(blocks, rows // blocks)
+    home = cents0.device
+    devices = [x.device for x in xs]
+    xbs = [x.reshape(blocks, x.shape[0] // blocks, x.shape[1]) for x in xs]
+    vbs = [v.reshape(blocks, v.shape[0] // blocks) for v in valids]
     cents = cents0
-    inertia = torch.zeros((), dtype=x.dtype, device=x.device)
+    inertia = torch.zeros((), dtype=cents0.dtype, device=home)
     for _ in range(iters):
-        parts = [_block_stats(xb[b], vb[b], cents, k, impl)
-                 for b in range(blocks)]
-        tot = torch.stack([p[0] for p in parts]).sum(dim=0)
-        cnt = torch.stack([p[1] for p in parts]).sum(dim=0)
-        w = torch.stack([p[2] for p in parts])
+        parts = []
+        for xb, vb, c in zip(xbs, vbs, collectives.replicate(cents, devices)):
+            with on_device(c.device):
+                parts += [_block_stats(xb[b], vb[b], c, k, impl)
+                          for b in range(blocks)]
+        tot = torch.stack([p[0].to(home) for p in parts]).sum(dim=0)
+        cnt = torch.stack([p[1].to(home) for p in parts]).sum(dim=0)
+        w = torch.stack([p[2].to(home) for p in parts])
         cents = torch.where(cnt[:, None] > 0,
                             tot / torch.clamp(cnt, min=1)[:, None], cents)
         inertia = torch.sum(w) / n
-    assign = torch.cat([ops.kmeans_assign(xb[b], cents, impl=impl)[0]
-                        for b in range(blocks)])
-    return cents, assign, inertia
+    assign = []
+    for xb, c in zip(xbs, collectives.replicate(cents, devices)):
+        with on_device(c.device):
+            assign.append(torch.cat([ops.kmeans_assign(xb[b], c,
+                                                       impl=impl)[0]
+                                     for b in range(blocks)]))
+    return cents, collectives.gather(assign, home), inertia
+
+
+def _lloyd(x: torch.Tensor, valid: torch.Tensor, cents0: torch.Tensor, *,
+           k: int, iters: int, blocks: int, n: int, impl: str):
+    """`_lloyd_core` on one device: x (rows, d) f32 with rows divisible by
+    ``blocks``; valid (rows,) bool."""
+    return _lloyd_core([x], [valid], cents0, k=k, iters=iters, blocks=blocks,
+                       n=n, impl=impl)
+
+
+def _kmeans_core(gen: torch.Generator, xs: list[torch.Tensor],
+                 valids: list[torch.Tensor], *, k: int, iters: int,
+                 blocks: int, n: int, impl: str):
+    """kmeans++ then Lloyd over row shards of ``blocks`` blocks each: the
+    one core of the unsharded and the sharded fit."""
+    cents0 = _kmeanspp_core(gen, xs, valids, k, n)
+    return _lloyd_core(xs, valids, cents0, k=k, iters=iters, blocks=blocks,
+                       n=n, impl=impl)
 
 
 def kmeans_fit(gen: torch.Generator, x: torch.Tensor, *, k: int,
@@ -118,10 +197,43 @@ def kmeans_fit(gen: torch.Generator, x: torch.Tensor, *, k: int,
     """kmeans++ init then ``iters`` Lloyd steps; x (N, d) f32 on its device."""
     n = x.shape[0]
     xp, valid = _pad_rows(x.to(torch.float32), n_blocks)
-    cents0 = _kmeanspp(gen, xp, valid, k, n)
-    cents, assign, inertia = _lloyd(xp, valid, cents0, k=k, iters=iters,
-                                    blocks=n_blocks, n=n, impl=impl)
+    cents, assign, inertia = _kmeans_core(gen, [xp], [valid], k=k,
+                                          iters=iters, blocks=n_blocks, n=n,
+                                          impl=impl)
     return KMeansResult(cents, assign[:n], inertia)
+
+
+def _place_padded(x, mult: int, devices: list[torch.device]):
+    """x ((N, d) numpy or tensor) zero-padded to a multiple of ``mult`` rows
+    on the host and split into row shards on ``devices``: (shards, valid
+    shards)."""
+    x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32)
+    n = x.shape[0]
+    pad = (-n) % mult
+    xp = np.zeros((n + pad, x.shape[1]), np.float32)
+    xp[:n] = x
+    return (collectives.place_rows(xp, devices),
+            collectives.place_rows(np.arange(n + pad) < n, devices))
+
+
+def kmeans_fit_sharded(gen: torch.Generator, x, *, k: int, iters: int = 25,
+                       mesh, impl: str = "auto") -> KMeansResult:
+    """`kmeans_fit` with the corpus row-sharded over ``mesh``.
+
+    x: (N, d) f32, numpy or a tensor; rows pad to a multiple of
+    ``build_blocks(shards)`` and each shard's slice goes straight to its
+    device.  kmeans++ draws from the gathered global D² with ``gen``; each
+    Lloyd step reduces the gathered per-block partials in canonical block
+    order.  Results land on ``gen``'s device, bitwise equal to
+    ``kmeans_fit(..., n_blocks=build_blocks(shards))`` on one device.
+    """
+    shards = len(mesh.devices)
+    blocks = build_blocks(shards)
+    xs, vs = _place_padded(x, blocks, mesh.devices)
+    cents, assign, inertia = _kmeans_core(gen, xs, vs, k=k, iters=iters,
+                                          blocks=blocks // shards,
+                                          n=x.shape[0], impl=impl)
+    return KMeansResult(cents, assign[:x.shape[0]], inertia)
 
 
 def assign_to_centroids(x: torch.Tensor, cents: torch.Tensor, *,
@@ -130,14 +242,33 @@ def assign_to_centroids(x: torch.Tensor, cents: torch.Tensor, *,
     return ops.kmeans_assign(x, cents, impl=impl)[0]
 
 
-def blocked_sqdist(x: torch.Tensor, cents: torch.Tensor, *,
-                   n_blocks: int = BUILD_BLOCKS) -> torch.Tensor:
-    """(N, k) f32 squared distances, one row block at a time."""
+def blocked_sqdist(x, cents: torch.Tensor, *, n_blocks: int = BUILD_BLOCKS,
+                   mesh=None) -> torch.Tensor:
+    """(N, k) f32 squared distances, one row block at a time.
+
+    x: a tensor; with ``mesh=`` also a numpy array, whose rows shard over
+    the mesh (``n_blocks`` a multiple of the shard count): each shard runs
+    its own blocks' products on its device and the rows gather on the
+    mesh's home device, so the distances are the same on every layout.
+    """
     n = x.shape[0]
-    xp, _ = _pad_rows(x.to(torch.float32), n_blocks)
-    rows = xp.shape[0] // n_blocks
-    return torch.cat([pairwise_sqdist(xp[b * rows:(b + 1) * rows], cents)
-                      for b in range(n_blocks)])[:n]
+    if mesh is None:
+        xs = [_pad_rows(x.to(torch.float32), n_blocks)[0]]
+        home = x.device
+    else:
+        if n_blocks % len(mesh.devices):
+            raise ValueError(f"n_blocks {n_blocks} not divisible by "
+                             f"{len(mesh.devices)} shards")
+        xs, _ = _place_padded(x, n_blocks, mesh.devices)
+        home = mesh.home
+    per = n_blocks // len(xs)
+    parts = []
+    for xp, c in zip(xs, collectives.replicate(cents,
+                                               [p.device for p in xs])):
+        rows = xp.shape[0] // per
+        parts += [pairwise_sqdist(xp[b * rows:(b + 1) * rows], c)
+                  for b in range(per)]
+    return collectives.gather(parts, home)[:n]
 
 
 def balanced_assign(x: np.ndarray, cents: np.ndarray, cap: int,

@@ -8,7 +8,11 @@ The server never sees the query embedding, the chosen cluster, or the ranked
 results.  Two server shapes: the legacy path (one one-hot per probe, one
 GEMM over the whole DB) and, after `enable_batch()`, batch-PIR (cuckoo
 buckets, one bucketed pass for all probes); `build_keyed` serves embedding
-rows by id through batch-PIR.  No mesh.
+rows by id through batch-PIR.  ``mesh=`` (a `launch.mesh.DeviceMesh`)
+shards the whole build and the server over the mesh's devices: k-means
+with the corpus row-sharded, per-shard packing placed straight on each
+device, per-shard hint rows, answers and patches, buckets spread over the
+shards; every output is bitwise the unsharded build's.
 
 A serving batch (`query_batch_async`, `lookup_batch_async`) queues its
 encryption, the answer, the decode and the decoded bytes' copy to the host
@@ -98,6 +102,23 @@ def _derive_build_streams(seed: int) -> tuple[threefry.Key, int]:
     return k_km, a_seed
 
 
+def mesh_device(mesh, device: str | torch.device | None) -> torch.device:
+    """The client's device of a build: ``device`` (`resolve_device`)
+    without a mesh; with one, the mesh's home device, which ``device`` may
+    name but not contradict."""
+    if mesh is None:
+        return resolve_device(device)
+    home = mesh.home
+    if device is not None:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev != home:
+            raise ValueError(f"device {dev} is not the mesh's home device "
+                             f"{home}")
+    return home
+
+
 def _fresh_client_generator(device: torch.device) -> torch.Generator:
     """Client-side randomness: one OS-entropy seed, never the build seed."""
     gen = torch.Generator(device=device)
@@ -148,6 +169,7 @@ class PirRagSystem:
     assignment: np.ndarray | None = None  # (N,) doc→cluster
     batch: object | None = None           # batchpir.BatchPIR once enabled
     keyed: object | None = None           # batchpir.KeyedLayout (keyed system)
+    mesh: object | None = None            # launch.mesh.DeviceMesh (sharded)
     _qgen: torch.Generator | None = None  # client stream for keyless queries
 
     @property
@@ -162,7 +184,8 @@ class PirRagSystem:
               balance_factor: float | None = None, seed: int = 0,
               impl: str = "auto", q_switch: int | None = 1 << 16,
               doc_ids: Sequence[int] | None = None,
-              device: str | torch.device | None = None) -> "PirRagSystem":
+              device: str | torch.device | None = None,
+              mesh=None) -> "PirRagSystem":
         """Offline setup: K-means → chunk-transposed DB → PIR hint.
 
         ``seed`` feeds two independent streams: cluster seeding and the
@@ -170,21 +193,39 @@ class PirRagSystem:
         ``doc_ids`` (default 0..N−1) keeps external document ids, as a
         live index's full rebuild needs.  Runs on ``device`` (default
         ``cuda``; raises without a card).
+
+        ``mesh=`` shards the whole build over the mesh (see `mesh_device`
+        for ``device``): k-means with the corpus row-sharded
+        (`clustering.kmeans_fit_sharded`), the balanced-assign distances per
+        shard, packing into per-shard row slices placed straight on their
+        devices, per-shard hint rows gathered once on the client's device.
+        K-means reduces over ``clustering.build_blocks(shards)`` canonical
+        blocks, so with S dividing BUILD_BLOCKS every output equals the
+        unsharded build's bitwise.
         """
-        dev = resolve_device(device)
+        dev = mesh_device(mesh, device)
+        blocks = clustering.build_blocks(
+            1 if mesh is None else len(mesh.devices))
         t0 = time.perf_counter()
         k_km, a_seed = _derive_build_streams(seed)
+        gen = threefry.torch_generator(k_km, dev)
         embf = np.asarray(embeddings, np.float32)
-        x = torch.from_numpy(embf).to(dev)
-        km = clustering.kmeans_fit(threefry.torch_generator(k_km, dev), x,
-                                   k=n_clusters, iters=kmeans_iters,
-                                   n_blocks=clustering.BUILD_BLOCKS, impl=impl)
+        if mesh is None:
+            x = torch.from_numpy(embf).to(dev)
+            km = clustering.kmeans_fit(gen, x, k=n_clusters,
+                                       iters=kmeans_iters, n_blocks=blocks,
+                                       impl=impl)
+        else:
+            x = embf
+            km = clustering.kmeans_fit_sharded(
+                gen, embf, k=n_clusters, iters=kmeans_iters, mesh=mesh,
+                impl=impl)
         cents = km.centroids.cpu().numpy()
         kmeans_s = time.perf_counter() - t0
         if balance_factor is not None:
             cap = int(np.ceil(len(texts) / n_clusters * balance_factor))
-            d2 = clustering.blocked_sqdist(x, km.centroids,
-                                           n_blocks=clustering.BUILD_BLOCKS)
+            d2 = clustering.blocked_sqdist(x, km.centroids, n_blocks=blocks,
+                                           mesh=mesh)
             assign = clustering.balanced_assign(embf, cents, cap,
                                                 d2=d2.cpu().numpy())
         else:
@@ -192,7 +233,7 @@ class PirRagSystem:
         system = cls._from_parts(texts, embf, cents, assign, n_clusters,
                                  a_seed=a_seed, chunk_size=chunk_size,
                                  q_switch=q_switch, impl=impl, device=dev,
-                                 t0=t0, doc_ids=doc_ids)
+                                 t0=t0, doc_ids=doc_ids, mesh=mesh)
         system.kmeans_seconds = kmeans_s
         return system
 
@@ -201,15 +242,25 @@ class PirRagSystem:
                     assign: np.ndarray, n_clusters: int, *, a_seed: int,
                     chunk_size: int, q_switch: int | None, impl: str,
                     device: torch.device, t0: float,
-                    doc_ids: Sequence[int] | None = None) -> "PirRagSystem":
-        """Pack, upload and hint a clustered corpus (build's second half)."""
+                    doc_ids: Sequence[int] | None = None,
+                    mesh=None) -> "PirRagSystem":
+        """Pack, upload and hint a clustered corpus (build's second half);
+        with ``mesh=``, packed into row shards placed shard by shard."""
+        shards = 1 if mesh is None else len(mesh.devices)
         t_pack = time.perf_counter()
         db = chunking.build_chunked_db(texts, embf, assign, n_clusters,
-                                       chunk_size, doc_ids=doc_ids)
+                                       chunk_size, doc_ids=doc_ids,
+                                       n_row_shards=shards)
         pack_s = time.perf_counter() - t_pack
         cfg = pir.make_config(db.m, db.n, impl=impl, q_switch=q_switch,
                               a_seed=a_seed)
-        server = pir.PIRServer(cfg, torch.from_numpy(db.matrix).to(device))
+        if mesh is None:
+            server = pir.PIRServer(cfg,
+                                   torch.from_numpy(db.matrix).to(device))
+        else:
+            server = pir.PIRServer(
+                cfg, db.row_shards if db.row_shards is not None
+                else db.matrix, mesh=mesh)
         sync(device)
         t_index = time.perf_counter()
         hint = server.setup()
@@ -219,6 +270,7 @@ class PirRagSystem:
                    server=server, hint=hint, setup_seconds=t_end - t0,
                    index_seconds=t_index - t0, pack_seconds=pack_s,
                    hint_seconds=t_end - t_index, assignment=assign,
+                   mesh=mesh,
                    _qgen=_fresh_client_generator(device))
 
     @classmethod
@@ -227,8 +279,8 @@ class PirRagSystem:
                     chunk_size: int = 256, seed: int = 0,
                     batch_seed: int = 101, impl: str = "auto",
                     q_switch: int | None = 1 << 16,
-                    device: str | torch.device | None = None
-                    ) -> "PirRagSystem":
+                    device: str | torch.device | None = None,
+                    mesh=None) -> "PirRagSystem":
         """Offline setup for KEYED serving: a private embedding-table index.
 
         table: (V, d) f32 rows.  There is no k-means: row i lands in group
@@ -238,10 +290,11 @@ class PirRagSystem:
         `lookup` then recovers rows bit-identical to ``table[ids]``.
         ``centroids`` are the per-group row means, so the legacy `query`
         stays well formed.  ``seed`` gives ``a_seed`` as in `build`.  Runs
-        on ``device`` (default ``cuda``; raises without a card).
+        on ``device`` (default ``cuda``; raises without a card); ``mesh=``
+        row-shards the flat DB and spreads the buckets as in `build`.
         """
         from repro_torch import batchpir
-        dev = resolve_device(device)
+        dev = mesh_device(mesh, device)
         t0 = time.perf_counter()
         table = np.ascontiguousarray(table, np.float32)
         layout = batchpir.KeyedLayout.build(table.shape[0], table.shape[1],
@@ -256,7 +309,7 @@ class PirRagSystem:
         system = cls._from_parts(texts, table, cents, assign, layout.n_groups,
                                  a_seed=a_seed, chunk_size=chunk_size,
                                  q_switch=q_switch, impl=impl, device=dev,
-                                 t0=t0)
+                                 t0=t0, mesh=mesh)
         system.keyed = layout
         system.enable_batch(kappa=kappa, n_buckets=n_buckets, seed=batch_seed)
         system.setup_seconds += system.batch.setup_seconds
@@ -269,13 +322,17 @@ class PirRagSystem:
         """Bucketize the DB for batch-PIR; multi_probe > 1 then routes there.
 
         The sub-DBs are gathered on the device from the served DB, and every
-        bucket hint is computed there.  Returns the `batchpir.BatchPIR`.
+        bucket hint is computed there.  A sharded system spreads the buckets
+        over its mesh, each sub-DB gathered from the host mirror straight
+        onto the shard that owns it.  Returns the `batchpir.BatchPIR`.
         """
         from repro_torch import batchpir
+        matrix = (self.server.db if self.mesh is None
+                  else torch.from_numpy(self.db.matrix))
         self.batch = batchpir.build(
-            self.server.db, self.db.used_bytes, self.cfg.params,
+            matrix, self.db.used_bytes, self.cfg.params,
             kappa=kappa, n_buckets=n_buckets, seed=seed,
-            a_seed=self.cfg.a_seed, impl=self.cfg.impl)
+            a_seed=self.cfg.a_seed, impl=self.cfg.impl, mesh=self.mesh)
         return self.batch
 
     # -- keyed lookups (recsys serving) --------------------------------------

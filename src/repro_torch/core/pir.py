@@ -9,7 +9,9 @@ Protocol roles (honest-but-curious server):
             client:  decode(ans − H·s) → column i of D
 
 All three products go through the exact mod-2^32 CUDA kernel on a card
-(`kernels.ops`), the plain PyTorch version on the CPU.  A column swap (the
+(`kernels.ops`), the plain PyTorch version on the CPU.  ``mesh=`` row-shards
+the DB over a `launch.mesh.DeviceMesh` (the JAX twin's ``mesh=`` branches):
+each shard answers, hints and patches its own rows.  A column swap (the
 live index) patches the hint with ΔH = (D_new − D_old)[:, J]·A[J, :]
 through the delta-hint kernel instead of a new setup.  u32 values are
 int32 tensors holding the same bits.
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch._common import to_device
 from repro_torch.core import lwe
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 
 
@@ -57,21 +60,77 @@ class PIRConfig:
         return self.m * self.params.k * 4
 
 
-class PIRServer:
-    """Holds the plaintext DB ((m, n) uint8 tensor, entries < p) on its device
-    and answers encrypted queries there."""
+def _as_tensor(a) -> torch.Tensor:
+    """A host array as a tensor sharing its memory; a tensor as is."""
+    return torch.from_numpy(np.ascontiguousarray(a)) if isinstance(
+        a, np.ndarray) else a
 
-    def __init__(self, cfg: PIRConfig, db: torch.Tensor):
-        if tuple(db.shape) != (cfg.m, cfg.n) or db.dtype != torch.uint8:
-            raise ValueError(f"db must be ({cfg.m}, {cfg.n}) uint8, got "
-                             f"{tuple(db.shape)} {db.dtype}")
+
+class PIRServer:
+    """Holds the plaintext DB ((m, n) uint8, entries < p) on its device and
+    answers encrypted queries there.
+
+    The DB is held as row shards, one per device of ``mesh=`` (a
+    `launch.mesh.DeviceMesh`), or one shard without a mesh, and every
+    method has the one body: each shard answers, hints and patches its own
+    rows (zero collectives: the contraction, cluster, axis is never split),
+    and the hint, answers and ΔH gather on the first shard's device, the
+    client's.  Rows pad with zeros to a multiple of the shard count, and the
+    pad rows stay zero across column swaps.  ``db`` is the (m, n) tensor
+    without a mesh and the tuple of S equal row slices with one.  ``db``
+    given to the constructor may be a full (m, n) host array or tensor,
+    split and placed slice by slice, or S per-shard slices
+    (``ChunkedDB.row_shards``), each placed straight on its device.
+    """
+
+    def __init__(self, cfg: PIRConfig, db, *, mesh=None):
         self.cfg = cfg
-        self.db = db.contiguous()
+        self.mesh = mesh
         self._a_mat: torch.Tensor | None = None
+        shards = 1 if mesh is None else len(mesh.devices)
+        self._row_pad = (-cfg.m) % shards
+        rows = (cfg.m + self._row_pad) // shards
+        if isinstance(db, (list, tuple)):
+            parts = [_as_tensor(p) for p in db]
+        else:
+            full = _as_tensor(db)
+            if tuple(full.shape) != (cfg.m, cfg.n):
+                raise ValueError(f"db must be ({cfg.m}, {cfg.n}) uint8, got "
+                                 f"{tuple(full.shape)} {full.dtype}")
+            if self._row_pad:
+                full = torch.cat([full, full.new_zeros((self._row_pad,
+                                                        cfg.n))])
+            parts = collectives.place_rows(full, [full.device] * shards)
+        devices = [parts[0].device] if mesh is None else mesh.devices
+        if len(parts) != len(devices):
+            raise ValueError(f"{len(parts)} row shards for {len(devices)} "
+                             f"devices")
+        for part in parts:
+            if tuple(part.shape) != (rows, cfg.n) or part.dtype != torch.uint8:
+                raise ValueError(f"row shards must be ({rows}, {cfg.n}) "
+                                 f"uint8, got {tuple(part.shape)} "
+                                 f"{part.dtype}")
+        self._shards = [p.to(d).contiguous() for p, d in zip(parts, devices)]
+
+    @property
+    def db(self):
+        """The live DB: the (m, n) tensor, or on a mesh the tuple of row
+        shards."""
+        return self._shards[0] if self.mesh is None else tuple(self._shards)
+
+    @db.setter
+    def db(self, value) -> None:
+        self._shards = [value] if self.mesh is None else list(value)
+
+    def _as_db(self, parts: list[torch.Tensor]):
+        """Per-shard tensors in the form `db` takes."""
+        return parts[0] if self.mesh is None else tuple(parts)
 
     @property
     def device(self) -> torch.device:
-        return self.db.device
+        """Where the server's results land: the first shard's device (the
+        mesh's home device)."""
+        return self._shards[0].device
 
     @property
     def a_matrix(self) -> torch.Tensor:
@@ -82,19 +141,35 @@ class PIRServer:
                 device=self.device)
         return self._a_mat
 
+    def _gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """Per-shard rows as the global (m, ...) result on the home device:
+        the pad rows are cut."""
+        return collectives.gather(parts, self.device)[:self.cfg.m]
+
+    def _old_columns(self, cols: torch.Tensor) -> list[torch.Tensor]:
+        """Each shard's rows of the live DB's columns ``cols``."""
+        return [d[:, c] for d, c in zip(self._shards, collectives.replicate(
+            cols, [d.device for d in self._shards]))]
+
     def setup(self) -> torch.Tensor:
-        """Offline hint H = D·A ∈ Z_q^{m×k} (the heavy one-time GEMM)."""
-        return ops.hint_gemm(self.db, self.a_matrix, impl=self.cfg.impl)
+        """Offline hint H = D·A ∈ Z_q^{m×k} (the heavy one-time GEMM): each
+        shard's hint rows on its device, gathered on the home device."""
+        return self._gather(collectives.row_shard_gemm(
+            self._shards, self.a_matrix, impl=self.cfg.impl))
 
     def answer(self, qu: torch.Tensor) -> torch.Tensor:
         """Online answer: D·qu mod 2^32, modulus-switched when configured.
 
         qu: (n,) or (n, batch) int32-held u32.
         """
-        ans = ops.modmatmul(self.db, qu, impl=self.cfg.impl)
-        if self.cfg.params.q_switch is not None:
-            ans = lwe.switch_modulus(ans, self.cfg.params.q_switch)
-        return ans
+        return self._gather(collectives.row_shard_gemm(
+            self._shards, qu, impl=self.cfg.impl,
+            q_switch=self.cfg.params.q_switch))
+
+    def columns(self, cols: torch.Tensor, rows: int) -> np.ndarray:
+        """The first ``rows`` rows of the live DB's columns ``cols``, on the
+        host ((rows, J) uint8)."""
+        return self._gather(self._old_columns(cols))[:rows].cpu().numpy()
 
     def _check_swap(self, cols: torch.Tensor, new_cols: torch.Tensor
                     ) -> torch.Tensor:
@@ -108,6 +183,15 @@ class PIRServer:
                              f"{new_cols.device}")
         return cols
 
+    def _shard_rows(self, new_cols: torch.Tensor) -> list[torch.Tensor]:
+        """Each shard's rows of ``new_cols`` on its device, the pad rows
+        zero."""
+        if self._row_pad:
+            new_cols = torch.cat([new_cols, new_cols.new_zeros(
+                (self._row_pad, new_cols.shape[1]))])
+        return collectives.place_rows(new_cols,
+                                      [d.device for d in self._shards])
+
     def stage_delta(self, cols: torch.Tensor, new_cols: torch.Tensor
                     ) -> torch.Tensor:
         """The hint delta ΔH = (D_new − D_old)[:, J]·A[J, :] of a column swap,
@@ -116,24 +200,27 @@ class PIRServer:
         Reads the old columns from the live DB, so it must be queued before
         any donating scatter of the same swap.  cols: (J,) column ids;
         new_cols: (m, J) uint8 on the server's device.  Returns (m, k)
-        int32-held u32.  The JAX twin pads J to a power of two to reuse
+        int32-held u32: each shard's rows of ΔH from its own rows, gathered
+        on the home device.  The JAX twin pads J to a power of two to reuse
         compiled shapes; its pad slots add exactly 0, so ΔH is the same.
         """
         cols = self._check_swap(cols, new_cols)
-        old_cols = self.db[:, cols]
-        a_j = self.a_matrix[cols]
-        return ops.delta_gemm(new_cols, old_cols, a_j, impl=self.cfg.impl)
+        return self._gather(collectives.row_shard_delta_gemm(
+            self._shard_rows(new_cols), self._old_columns(cols),
+            self.a_matrix[cols], impl=self.cfg.impl))
 
     def stage_scatter(self, cols: torch.Tensor, new_cols: torch.Tensor, *,
-                      donate: bool = False) -> torch.Tensor:
-        """The patched DB for a column swap; ``self.db`` is not reassigned.
+                      donate: bool = False):
+        """The patched DB for a column swap, in the form of `db`;
+        ``self.db`` is not reassigned.
 
-        ``donate=True`` writes the columns into the live DB tensor itself:
-        only a caller that publishes the result at once may pass it (the
-        live index does so in its publish step).
+        ``donate=True`` writes the columns into the live DB tensor (each
+        live shard) itself: only a caller that publishes the result at once
+        may pass it (the live index does so in its publish step).
         """
         cols = self._check_swap(cols, new_cols)
-        return ops.scatter_columns(self.db, cols, new_cols, donate=donate)
+        return self._as_db(collectives.row_shard_scatter(
+            self._shards, cols, self._shard_rows(new_cols), donate=donate))
 
     def stage_update(self, cols: torch.Tensor, new_cols: torch.Tensor, *,
                      donate: bool = False

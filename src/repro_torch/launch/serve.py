@@ -7,23 +7,30 @@ Runs on the card unless ``--device cpu`` is given, and raises without one.
 `--engine sync` serves through the blocking loop; `pipelined` (default)
 overlaps batch N's products with completing batch N−depth and encoding
 batch N+1, and commits mutations by shadow stage and publish.  Responses
-are the same either way: only the timeline changes.  The fleet engine and
-the generation stage are not ported yet: their flags exit with an error
-naming the roadmap item that brings them.
+are the same either way: only the timeline changes.  ``--shard N`` builds
+and serves the index row-sharded over N shards (`launch.mesh.
+make_local_mesh`: shard s on card s mod the card count, or N shards on the
+CPU with ``--device cpu``); the responses are the unsharded run's.  The
+run prints each request's top-k doc ids.  The fleet engine, shard-loss
+injection and the generation stage are not ported yet: their flags exit
+with an error naming the roadmap item that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.serve.engine import PIRServeLoop, PipelinedServeLoop
 
 #: flags of the JAX twin this port does not serve yet → the roadmap item
 NOT_PORTED = {
     "engine fleet": "ROADMAP queue 1 item 5 (replica groups and recovery)",
+    "shard-loss": "ROADMAP queue 1 item 5 (replica groups and recovery)",
     "generate": "ROADMAP queue 1 item 3 (the generation stage)",
     "gen-coalesce": "ROADMAP queue 1 item 3 (the generation stage)",
 }
@@ -51,6 +58,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; raises "
                          "without a card)")
+    ap.add_argument("--shard", type=int, default=0,
+                    help="row-shard the index over this many shards (0 or "
+                         "1: unsharded); on --device cpu they share the CPU")
+    ap.add_argument("--shard-loss", metavar="TICK:DEV:TICKS", default=None,
+                    help="the JAX twin's shard-loss injection (fleet "
+                         "engine); not ported yet")
     ap.add_argument("--trace", metavar="OUT.json", default=None,
                     help="export a Chrome trace of the run's spans")
     ap.add_argument("--metrics", action="store_true",
@@ -60,6 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen-coalesce", type=int, default=None)
     args = ap.parse_args(argv)
     asked = {"engine fleet": args.engine == "fleet",
+             "shard-loss": args.shard_loss is not None,
              "generate": args.generate > 0,
              "gen-coalesce": args.gen_coalesce is not None}
     for flag, on in asked.items():
@@ -72,8 +86,18 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from repro_torch.core import pipeline
     from repro_torch.data import corpus as corpus_lib
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.obs import Obs
     from repro_torch.update import LiveIndex, journal
+
+    build_kw = dict(n_clusters=24, device=args.device)
+    if args.shard > 1:
+        on_cpu = torch.device(args.device).type == "cpu"
+        mesh = make_local_mesh(
+            args.shard, devices=[args.device] * args.shard if on_cpu
+            else None)
+        print(mesh)
+        build_kw["mesh"] = mesh
 
     corp = corpus_lib.make_corpus(0, args.docs, emb_dim=64, n_topics=24)
     rng = np.random.default_rng(0)
@@ -86,13 +110,11 @@ def main(argv=None) -> int:
         loop_kw["depth"] = args.depth
     live = None
     if args.mutate_every > 0:
-        live = LiveIndex.build(corp.texts, corp.embeddings, n_clusters=24,
-                               device=args.device)
+        live = LiveIndex.build(corp.texts, corp.embeddings, **build_kw)
         loop = loop_cls(live, **loop_kw)
     else:
         system = pipeline.PirRagSystem.build(corp.texts, corp.embeddings,
-                                             n_clusters=24,
-                                             device=args.device)
+                                             **build_kw)
         loop = loop_cls(system, **loop_kw)
     if args.multi_probe > 1:
         loop.system.enable_batch(kappa=max(4, args.multi_probe))
@@ -119,6 +141,9 @@ def main(argv=None) -> int:
           f"{np.percentile(lat, 99):.2f}s"
           + (f"; epoch {loop.epoch}; stale retries {loop.stale_retries}"
              if live is not None else ""))
+    tops = {r.rid: [int(d) for d, _, _ in r.top] for r in loop.responses}
+    print("top-k ids by request:",
+          json.dumps([tops.get(rid) for rid in range(args.requests)]))
     if args.trace is not None:
         from repro_torch.obs import span_coverage
         obs.export_chrome(args.trace)
@@ -127,7 +152,6 @@ def main(argv=None) -> int:
               f"{len(obs.tracer.instants)} instants -> {args.trace} "
               f"(root-span coverage {cov:.1%})")
     if args.metrics:
-        import json
         print(json.dumps(obs.metrics_dict(), indent=1))
     return 0
 

@@ -16,6 +16,11 @@ publish (swap)
     the bucket sub-DBs) plus the epoch-log append.
     This is the only instant at which a freshly formed query can go stale.
 
+On a row-sharded index (``mesh=``) the shadow buffers are per shard: ΔH
+is staged shard by shard and gathered on the client's device, and publish
+writes each shard's new columns into its live tensor, on its device, in
+the same swap.
+
 Every device write of both phases is queued on the one current stream, so
 a donated column write lands after the answer products of every batch
 dispatched before it, and before those of every batch dispatched after.

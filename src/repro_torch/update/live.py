@@ -1,5 +1,5 @@
 """LiveIndex: streaming corpus mutations over a PirRagSystem (twin of
-``repro/update/live.py``, on one device, without the mesh branches).
+``repro/update/live.py``).
 
 Mutations accumulate in the journal; `commit()` folds the pending batch into
 one published epoch:
@@ -17,6 +17,11 @@ one published epoch:
 When the planner trips a full-rebuild trigger (an insert overflowing the
 m-row budget, or pad_fraction degrading past the threshold after deletes),
 the epoch is published as a full-hint patch over a freshly built system.
+
+A sharded system (built with ``mesh=``) patches ΔH shard by shard: each
+shard's delta product reads and writes only its own rows, the rows gather
+on the client's device, and `ops.add_delta` folds them into the hint once.
+Its full rebuild goes back through the sharded build on the same mesh.
 
 Exactness invariant: after any mutation sequence the incrementally patched
 hint — server-side AND client-side — is bit-identical to `server.setup()`
@@ -120,6 +125,9 @@ class LiveIndex:
         self._rebuild_kwargs.setdefault("impl", system.cfg.impl)
         self._rebuild_kwargs.setdefault("chunk_size", system.db.chunk_size)
         self._rebuild_kwargs.setdefault("q_switch", system.cfg.params.q_switch)
+        if system.mesh is not None:
+            # a sharded index rebuilds through the sharded build
+            self._rebuild_kwargs.setdefault("mesh", system.mesh)
         self.commits: list[CommitStats] = []
         # Observability handle: a serve loop replaces this with its own via
         # set_obs() so commit spans land in the SAME trace as serve ticks.
@@ -157,9 +165,10 @@ class LiveIndex:
         """Offline-build a PirRagSystem and wrap it as a live index.
 
         texts: N byte strings; embeddings: (N, d) f32; extra kwargs
-        (``device=`` among them) forward to `PirRagSystem.build` AND are
-        replayed on every full rebuild.  ``compact_every=C`` enables
-        periodic hint-patch compaction in the epoch log.
+        (``device=`` and ``mesh=`` among them) forward to
+        `PirRagSystem.build` AND are replayed on every full rebuild.
+        ``compact_every=C`` enables periodic hint-patch compaction in the
+        epoch log.
         """
         system = pipeline.PirRagSystem.build(
             texts, embeddings, n_clusters=n_clusters, doc_ids=doc_ids,
@@ -350,7 +359,7 @@ class LiveIndex:
         old_used = max(self._used[int(j)] for j in cols)
         r = max(old_used, max(used.values()))
         cols_t = torch.from_numpy(cols).to(server.device)
-        old_rows = server.db[:r][:, cols_t].cpu().numpy()
+        old_rows = server.columns(cols_t, r)
         delta = (new_cols[:r].astype(np.int16)
                  - old_rows.astype(np.int16))           # entries ∈ [−255, 255]
 
